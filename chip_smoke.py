@@ -1,0 +1,555 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out PATH] [--quick]
+
+From the root of a checkout: builds the port's CUDA kernels from
+``src/repro_torch/csrc`` with nvcc, then runs these phases, each printing
+one JSON line:
+
+1. card — ``nvidia-smi`` name and power limit;
+2. kernels — each kernel (paged sectored attention, bf16 and int8) vs its
+   plain PyTorch version on the same CUDA tensors at the yi-6b serving
+   shapes and at the mask edges, with its time, the plain version's
+   time, one PyTorch yardstick call and the card's bound;
+3. main path — ``build_session`` serving 4 requests of ~768-token
+   prompts at full yi-6b width (32 layers, random bf16 weights from a
+   seeded generator) with the fused kernel, then with int8 KV (reusing
+   the first run's prefill states, which do not depend on the kernel); launch
+   counters must equal n_layers x sectored waves; one exact (prefill)
+   step and one fused wave run under torch.profiler (device time by
+   kernel, the device's idle share); one wave from one prefilled state
+   compares fused with dispatch (and reports fused_q8's logprob error);
+   then the reference's int8 gate (fused_q8 vs dispatch logprob error
+   <= LOGPROB_TOL, teacher-forced) on the reduced config it is defined
+   for;
+4. cli — ``repro_torch.launch.serve.main`` once (reduced config).
+
+Then a ``{"kernels": [...]}`` line, the card line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero
+without that line. Without CUDA, or without the repository around this
+file, it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
+TPU_KERNEL = "src/repro/kernels/sectored_attention.py:283"
+KERNEL_SOURCE = "src/repro_torch/csrc/sectored_attention_paged.cu"
+
+# kernel vs plain on the same CUDA tensors: f32 outputs of size ~1.
+# bf16 flavor: sums in another order move e by f32 ulps, which can flip
+# bf16(e) by one bf16 ulp (2**-8 relative) on a few weights and move out
+# by up to 2**-8 * e * |v| (|v| < 5 here); int8 flavor keeps e in f32.
+KERNEL_TOL = {"bf16": {"out": 2e-2, "mass": 1e-5},
+              "int8": {"out": 1e-4, "mass": 1e-5}}
+# full-width serving: fused vs dispatch bf16 logits (|logit| up to ~8,
+# bf16 ulp 0.03 there) after 32 layers of the attention difference above
+LOGIT_TOL = 0.25
+TABLE_TOL = 1e-3  # SHT entries are EMA masses in [0, 1]
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# -- timing ------------------------------------------------------------------
+
+
+def time_ms(fn, torch, iters: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` (CUDA events around each call).
+
+    A 1 GiB write runs before each call: the 50 MB L2 then holds none of
+    the inputs, as a decode step finds its KV pages, and the card is
+    still busy with it (about 0.3 ms) while the host enqueues ``fn``, so
+    the host's overhead of one wrapper call does not show as idle time
+    between the events (a chain of many small ops, like a plain version,
+    still shows it: that is what it costs)."""
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# -- phase 2: kernels vs plain -------------------------------------------------
+
+
+def make_case(torch, gen, *, B, Hkv, rep, hd, page, P, K, lengths,
+              shared=False):
+    dev = gen.device
+    q = torch.randn((B, Hkv, rep, hd), generator=gen, device=dev).bfloat16()
+    kp = torch.randn((B, P, page, Hkv, hd), generator=gen,
+                     device=dev).bfloat16()
+    vp = torch.randn((B, P, page, Hkv, hd), generator=gen,
+                     device=dev).bfloat16()
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    heads = 1 if shared else Hkv
+    rows = []
+    for b in range(B):
+        # like the predictor: the page being written, then others that
+        # hold valid tokens, ascending
+        n_valid = min(P, (lengths[b] - 1) // page + 1)
+        for _ in range(heads):
+            perm = torch.randperm(P, generator=gen, device=dev)
+            order = torch.cat([perm[perm < n_valid], perm[perm >= n_valid]])
+            cur = torch.tensor([n_valid - 1], device=dev)
+            rest = order[order != n_valid - 1][:K - 1]
+            rows.append(torch.sort(torch.cat([cur, rest])).values)
+    idx = torch.stack(rows).reshape(B, heads, K).to(torch.int32)
+    return q, kp, vp, idx, length
+
+
+def case_bytes_ops(case, flavor, scales):
+    """Least bytes and operations for one call: each input read once
+    (only the selected pages' valid tokens of K and V), each output
+    written once; 4*rep*hd operations per valid token (QK and PV)."""
+    q, kp, _, idx, length = case
+    B, Hkv, rep, hd = q.shape
+    page = kp.shape[2]
+    K = idx.shape[-1]
+    starts = idx.long().expand(B, Hkv, K) * page
+    valid = (length.long()[:, None, None] - starts).clamp(0, page)
+    tokens = int(valid.sum())
+    kv_item = 2 if flavor == "bf16" else 1
+    nbytes = (q.numel() * 2 + idx.numel() * 4 + length.numel() * 4
+              + 2 * tokens * hd * kv_item
+              + (2 * B * Hkv * K * 4 if scales else 0)
+              + B * Hkv * rep * hd * 4 + B * Hkv * K * 4)
+    ops = 4 * rep * hd * tokens
+    return nbytes, ops
+
+
+def kernel_phase(torch, sa, qkv, dev="cuda", timed=True):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    serving = dict(B=4, Hkv=4, rep=8, hd=128, page=128, P=24, K=5)
+    cases = {
+        "serving": dict(serving, lengths=[769, 800, 700, 896]),
+        "shared_heads": dict(serving, lengths=[769, 800, 700, 896],
+                             shared=True),
+        "ragged": dict(serving, lengths=[1, 130, 2000, 3072]),
+        "k_page_minus_1": dict(serving, lengths=[5 * 128 - 1] * 4),
+        "k_page": dict(serving, lengths=[5 * 128] * 4),
+        "k_page_plus_1": dict(serving, lengths=[5 * 128 + 1] * 4),
+        "k_eq_p": dict(serving, P=5, lengths=[640, 600, 129, 1]),
+    }
+    results, worst = [], {"bf16": 0.0, "int8": 0.0}
+    timing = {}
+    for name, spec in cases.items():
+        case = make_case(torch, gen, **spec)
+        q, kp, vp, idx, length = case
+        for flavor in ("bf16", "int8"):
+            if flavor == "int8":
+                kq, ks = qkv.quantize_pages(kp)
+                vq, vs = qkv.quantize_pages(vp)
+                args = (q, kq, vq, idx, length)
+                kw = dict(k_scale=ks, v_scale=vs)
+            else:
+                args, kw = (q, kp, vp, idx, length), {}
+            out, mass = sa.sectored_attention_paged(*args, **kw)
+            if timed:
+                torch.cuda.synchronize()
+            ref_out, ref_mass = sa.sectored_attention_paged_ref(*args, **kw)
+            err_out = float((out - ref_out).abs().max())
+            err_mass = float((mass - ref_mass).abs().max())
+            tol = KERNEL_TOL[flavor]
+            ok = (err_out <= tol["out"] and err_mass <= tol["mass"]
+                  and bool(torch.isfinite(out).all()))
+            worst[flavor] = max(worst[flavor], err_out, err_mass)
+            results.append(dict(case=name, flavor=flavor, err_out=err_out,
+                                err_mass=err_mass, ok=ok))
+            if not ok:
+                fail(f"kernel {flavor} disagrees with its plain version "
+                     f"on case {name}: out err {err_out}, mass err "
+                     f"{err_mass} (tolerance {tol})")
+            if name == "serving" and timed:
+                timing[flavor] = time_flavor(torch, sa, case, flavor,
+                                             args, kw)
+    return results, worst, timing
+
+
+def time_flavor(torch, sa, case, flavor, args, kw):
+    import torch.nn.functional as F
+    ms = time_ms(lambda: sa.sectored_attention_paged(*args, **kw), torch)
+    plain_ms = time_ms(
+        lambda: sa.sectored_attention_paged_ref(*args, **kw), torch)
+    library_ms = None
+    if flavor == "bf16":
+        # yardstick: one SDPA call over the already gathered pages (no
+        # gather, no per-page mass) — timed here, never used by the port
+        q, kp, vp, idx, length = case
+        B, Hkv, rep, hd = q.shape
+        page = kp.shape[2]
+        pages = idx.expand(B, Hkv, idx.shape[-1])
+        k_sel = sa.gather_pages(kp, pages).reshape(B, Hkv, -1, hd)
+        v_sel = sa.gather_pages(vp, pages).reshape(B, Hkv, -1, hd)
+        pos = (pages.long()[..., None] * page
+               + torch.arange(page, device="cuda")).reshape(B, Hkv, 1, -1)
+        mask = pos < length.long()[:, None, None, None]
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k_sel, v_sel, attn_mask=mask), torch)
+    nbytes, ops = case_bytes_ops(case, flavor, bool(kw))
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_OPS_PER_S[flavor] * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+# -- phase 3: the main path ----------------------------------------------------
+
+
+def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
+              prefills, dev="cuda", lengths=(768, 770, 790, 800),
+              seq_len=2048):
+    """Serve the 4 requests through ``build_session`` with ``kernel``.
+
+    ``prefills`` (prompt bytes -> (logits, state)) carries prefill results
+    from one run to the next: prefill runs the exact dispatch step
+    whatever the kernel, so the second run takes the first run's states
+    bit for bit instead of spending the time limit on recomputing them.
+    """
+    from repro_torch.serve import Request
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    sess = launch_serve.build_session(
+        cfg, params, true_sectored=True, kernel=kernel, policy="sectored",
+        seq_len=seq_len, max_batch=4, device=dev)
+    backend = sess.backend
+    prefill = backend.prefill_fn
+    prefill_s = [0.0]
+
+    reused = [0]
+
+    def timed_prefill(tokens):
+        key = np.asarray(tokens, np.int32).tobytes()
+        if key in prefills:
+            reused[0] += 1
+            logits, state = prefills[key]
+            return logits.clone(), state.clone()
+        sync()
+        t0 = time.perf_counter()
+        logits, state = prefill(tokens)
+        sync()
+        prefill_s[0] += time.perf_counter() - t0
+        prefills[key] = (logits.clone(), state.clone())
+        return logits, state
+    backend.prefill_fn = timed_prefill
+    rng = np.random.default_rng(0)
+    lengths = list(lengths)
+    handles = [sess.submit(Request(
+        rid, rng.integers(0, cfg.vocab, n).astype(np.int32),
+        max_new_tokens=16)) for rid, n in enumerate(lengths)]
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sa.reset_launches()
+    t0 = time.perf_counter()
+    stats = sess.run_until_drained()
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = dict(sa.launches)
+    flavor = "int8" if kernel == "fused_q8" else "bf16"
+    other = "bf16" if flavor == "int8" else "int8"
+    decode_s = total_s - prefill_s[0]
+    k = backend.k_for(None)
+    out = dict(phase="main_path", kernel=kernel, n_layers=n_layers,
+               completed=stats["completed"], waves=stats["waves"],
+               sectored_waves=stats["sectored_waves"],
+               decode_steps=stats["decode_steps"],
+               launches=launches, prefill_s=prefill_s[0],
+               prefills_reused=reused[0],
+               total_s=total_s, ms_per_wave=decode_s / stats["waves"] * 1e3,
+               decode_tokens_per_s=stats["decode_steps"] / decode_s,
+               peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                            if dev == "cuda" else None),
+               k_pages=k, probe_pages=backend.probe_pages_for(k),
+               padded_pages=backend.pages,
+               prompt_lengths=lengths)
+    emit(out)
+    if not all(h.done for h in handles) or stats["completed"] != 4:
+        fail(f"{kernel}: not every request completed: {stats}")
+    want = n_layers * stats["sectored_waves"]
+    if dev == "cuda" and (launches[flavor] != want or launches[other] != 0
+                          or want == 0):
+        fail(f"{kernel}: launches {launches}, want {flavor}={want} "
+             f"(n_layers x sectored waves) and {other}=0")
+    for h in handles:
+        if len(h.peek()) != 16:
+            fail(f"{kernel}: request {h.rid} emitted {len(h.peek())} tokens")
+    return sess, handles, out
+
+
+def profile_step(torch, label, fn, state, token):
+    """One decode step under ``torch.profiler``: its host time, the device
+    time of every kernel it ran, and the device's idle share of the step
+    (1 - busy / wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    state = state.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state, token)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        row = by_name.setdefault(evt.name, [0.0, 0])
+        row[0] += evt.time_range.elapsed_us() / 1e3
+        row[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    attn = {k: v for k, v in by_name.items()
+            if any(s in k for s in ("scores_kernel", "values_kernel",
+                                    "combine_kernel"))}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    out = dict(phase="profile", step=label, batch=int(token.shape[0]),
+               wall_ms=wall_ms, device_busy_ms=busy_ms,
+               idle_share=1.0 - busy_ms / wall_ms,
+               device_launches=sum(c for _, c in by_name.values()),
+               sectored_attention_ms=sum(ms for ms, _ in attn.values()),
+               top=[dict(name=k[:90], ms=ms, count=c)
+                    for k, (ms, c) in top])
+    emit(out)
+    return out
+
+
+def one_wave_check(torch, sess, handles, backend_kernel_fns):
+    """From one prefilled state at full width: one wave with fused,
+    fused_q8 and dispatch. Fused vs dispatch logits and tables are held
+    to LOGIT_TOL and TABLE_TOL; the fused_q8 logprob error is reported
+    (its gate, LOGPROB_TOL, is defined on the reduced config and is held
+    there by :func:`q8_reduced_check`)."""
+    state = sess.batched
+    token = torch.tensor([[h.peek()[-1]] for h in handles],
+                         dtype=torch.int32, device=state.table.device)
+    res = {}
+    for name, fn in backend_kernel_fns.items():
+        logits, new = fn(state.clone(), token)
+        res[name] = (logits.float(), new.table)
+    ld, td = res["dispatch"]
+    lf, tf = res["fused"]
+    lq, _ = res["fused_q8"]
+    logit_err = float((lf - ld).abs().max())
+    table_err = float((tf - td).abs().max())
+    lp_err = float((torch.log_softmax(lq, -1)
+                    - torch.log_softmax(ld, -1)).abs().max())
+    lp_err_bf16 = float((torch.log_softmax(lf, -1)
+                         - torch.log_softmax(ld, -1)).abs().max())
+    out = dict(phase="one_wave", fused_vs_dispatch_logit_err=logit_err,
+               fused_vs_dispatch_table_err=table_err,
+               fused_vs_dispatch_logprob_err=lp_err_bf16,
+               fused_q8_vs_dispatch_logprob_err=lp_err,
+               greedy_agree=dict(
+                   fused=bool((lf.argmax(-1) == ld.argmax(-1)).all()),
+                   fused_q8=bool((lq.argmax(-1) == ld.argmax(-1)).all())),
+               logit_absmax=float(ld.abs().max()),
+               tolerances=dict(logits=LOGIT_TOL, table=TABLE_TOL))
+    emit(out)
+    if not (torch.isfinite(ld).all() and torch.isfinite(lf).all()
+            and torch.isfinite(lq).all()):
+        fail("non-finite logits in the one-wave check")
+    if logit_err > LOGIT_TOL or table_err > TABLE_TOL:
+        fail(f"fused vs dispatch: logits err {logit_err}, table err "
+             f"{table_err}")
+    return out
+
+
+def q8_reduced_check(torch, np, configs, model, sd, qkv, dev="cuda"):
+    """The reference's int8 gate on the card: on the reduced yi-6b it
+    holds ``LOGPROB_TOL`` for (tests/test_kernels_fused.py), teacher-forced
+    fused_q8 steps (the int8 kernel) vs dispatch steps from one prefilled
+    state, per-step logprob max-abs-err <= LOGPROB_TOL and nonzero."""
+    cfg = configs.get("yi-6b").reduced()
+    params = model.init_params(cfg, seed=0, device=dev)
+    backend = sd.make_serving_fns(cfg, params=params, seq_len=384,
+                                  min_topk=1, device=dev)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab, (2, 260)).astype(np.int32)
+    logits, state_d = backend.prefill_fn(prompt)
+    state_q = state_d.clone()
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+    worst = 0.0
+    for _ in range(4):
+        ld, state_d = sd.sectored_decode_step(params, cfg, state_d, tok, 1,
+                                              probe=True, kernel="dispatch")
+        lq, state_q = sd.sectored_decode_step(params, cfg, state_q, tok, 1,
+                                              probe=True, kernel="fused_q8")
+        worst = max(worst, float((torch.log_softmax(ld.float(), -1)
+                                  - torch.log_softmax(lq.float(), -1))
+                                 .abs().max()))
+        tok = ld.argmax(-1, keepdim=True).to(torch.int32)
+    out = dict(phase="q8_reduced", arch=cfg.name, steps=4,
+               logprob_err=worst, tolerance=qkv.LOGPROB_TOL)
+    emit(out)
+    if not 0 < worst <= qkv.LOGPROB_TOL:
+        fail(f"reduced fused_q8 logprob err {worst} not in "
+             f"(0, {qkv.LOGPROB_TOL}]")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="also write every phase's record to this JSON file")
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check the kernels only (no serving)")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a "
+             "CUDA GPU")
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        fail(f"no src/repro_torch/csrc under {ROOT}: run this script from "
+             f"a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import build, quantized_kv
+    from repro_torch.kernels import sectored_attention as sa
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model
+    from repro_torch.runtime import sectored_decode
+
+    records = []
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    records.append(dict(phase="card", nvidia_smi=card, kind=kind,
+                        torch=torch.__version__, cuda=torch.version.cuda))
+    emit(records[-1])
+
+    build_s = build.build_all()
+    ptxas = [line.strip() for log in build.build_logs.values()
+             for line in log.splitlines()
+             if "registers" in line or "spill" in line]
+    records.append(dict(phase="build", seconds=build_s,
+                        sources=build.sources(), ptxas=ptxas))
+    emit(records[-1])
+
+    cases, worst, timing = kernel_phase(torch, sa, quantized_kv)
+    records.append(dict(phase="kernels", cases=cases, timing=timing,
+                        card=card))
+    emit(records[-1])
+
+    launches = {"bf16": 0, "int8": 0}
+    if not args.quick:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = configs.get("yi-6b")
+        t0 = time.perf_counter()
+        params = model.init_params(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        records.append(dict(phase="init_params",
+                            seconds=time.perf_counter() - t0,
+                            n_layers=cfg.n_layers, d_model=cfg.d_model,
+                            vocab=cfg.vocab))
+        emit(records[-1])
+        prefills = {}
+        sess, handles, rec = serve_run(torch, np, sa, launch_serve, cfg,
+                                       params, "fused", cfg.n_layers,
+                                       prefills)
+        records.append(rec)
+        launches["bf16"] = rec["launches"]["bf16"]
+        backend = sess.backend
+        _, state1 = backend.prefill_fn(np.arange(8, dtype=np.int32)[None])
+        records.append(profile_step(
+            torch, "exact (prefill) step", backend.decode_fn, state1,
+            torch.zeros((1, 1), dtype=torch.int32, device="cuda")))
+        token = torch.tensor([[h.peek()[-1]] for h in handles],
+                             dtype=torch.int32, device="cuda")
+        records.append(profile_step(
+            torch, "fused sectored wave", backend.sectored_fn_for(None),
+            sess.batched, token))
+        del state1
+        _, _, rec = serve_run(torch, np, sa, launch_serve, cfg, params,
+                              "fused_q8", cfg.n_layers, prefills)
+        records.append(rec)
+        launches["int8"] = rec["launches"]["int8"]
+        backends = {k: launch_serve.build_backend(
+            cfg, params, true_sectored=True, seq_len=2048, kernel=k,
+            device="cuda") for k in ("dispatch", "fused", "fused_q8")}
+        fns = {k: b.sectored_fn_for(None) for k, b in backends.items()}
+        records.append(one_wave_check(torch, sess, handles, fns))
+        del sess, backend, backends, fns, params, prefills
+        torch.cuda.empty_cache()
+        records.append(q8_reduced_check(torch, np, configs, model,
+                                        sectored_decode, quantized_kv))
+
+        sa.reset_launches()
+        stats = launch_serve.main([
+            "--arch", "yi-6b", "--reduced", "--requests", "4",
+            "--max-new-tokens", "4", "--max-batch", "4", "--true-sectored",
+            "--fused-kernel", "--policy", "sectored", "--device", "cuda"])
+        cli = dict(phase="cli", stats=stats, launches=dict(sa.launches))
+        records.append(cli)
+        emit(cli)
+        if stats["completed"] != 4 or sa.launches["bf16"] == 0:
+            fail(f"CLI run: {stats}, launches {sa.launches}")
+
+    kernels = []
+    for flavor in ("bf16", "int8"):
+        t = timing[flavor]
+        kernels.append(dict(
+            name=f"sectored_attention_paged_{flavor}", route="cuda",
+            source=KERNEL_SOURCE, replaces=TPU_KERNEL,
+            launches=launches[flavor], max_abs_err=worst[flavor],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    if not args.quick and any(k["launches"] == 0 for k in kernels):
+        fail(f"a kernel of the main path was never launched: {kernels}")
+    if any(not math.isfinite(k["ms"]) for k in kernels):
+        fail("non-finite kernel time")
+    if args.out:
+        path = Path(args.out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(dict(records=records, kernels=kernels),
+                                   indent=1))
+    emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""repro_torch — the PyTorch/CUDA port of the sectored KV-cache serving path.
+
+The JAX package ``repro`` is the reference; this package mirrors its module
+names (``configs``, ``models``, ``runtime``, ``sample``, ``serve``,
+``launch``, ``kernels``) so each counterpart is easy to find, and never
+imports it (nor ``jax``). The Pallas kernel of the serving path
+(``kernels/sectored_attention.py:sectored_attention_paged``) is a
+hand-written CUDA kernel for Hopper here (``csrc/``), built with ``nvcc``
+at first use (``kernels/build.py``).
+
+Entry points run on the GPU unless the caller asks for the CPU
+(``device="cpu"``); on the CPU every kernel wrapper takes its plain
+PyTorch version.
+"""

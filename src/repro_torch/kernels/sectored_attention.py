@@ -1,0 +1,247 @@
+"""Paged sectored decode attention: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Counterpart of the JAX package's ``kernels/sectored_attention.py:
+sectored_attention_paged`` (the Pallas ``_paged_kernel``), the one kernel
+on the serving path. For each (batch, kv-head) it reads only the K pages
+the sector predictor selected from the page-major cache view
+``(B, P, page, Hkv, hd)`` — a free reshape of the ``(B, S, Hkv, hd)``
+decode cache — masks positions at or past ``length`` (a **count**: the
+runtime passes ``cache.length + 1``), runs one softmax over K x page per
+query row and returns the output and the per-page attention mass the
+sector-history table is updated with.
+
+* :func:`sectored_attention_paged` — the wrapper. On CPU tensors it runs
+  :func:`sectored_attention_paged_ref`; on CUDA tensors it launches
+  ``csrc/sectored_attention_paged.cu`` (bf16 or int8 flavor) or raises.
+  There is no fallback from one to the other.
+* :func:`sectored_attention_paged_ref` — the plain version: gathers the
+  selected pages and calls :func:`attend_pages`, the same arithmetic the
+  runtime's dispatch path uses, so on the CPU the fused path is bitwise
+  the dispatch path.
+
+``launches`` counts kernel launches per flavor; only the wrapper's CUDA
+branch increments it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import backend, build
+
+NEG_INF = -1e30
+SOURCE = "sectored_attention_paged"
+FLAVORS = ("bf16", "int8")
+
+#: kernel launches by flavor since the last :func:`reset_launches`
+launches = {flavor: 0 for flavor in FLAVORS}
+
+
+def reset_launches() -> None:
+    for flavor in FLAVORS:
+        launches[flavor] = 0
+
+
+def _check_page_idx(page_idx: torch.Tensor, hkv: int) -> bool:
+    """Validate page_idx's head axis against the cache and return the
+    shared-pages flag (one page set per sequence, walked by every head).
+
+    A silently wrong flag would make every head walk head 0's pages (or
+    read out of bounds), so shape-vs-flag agreement is enforced loudly."""
+    if page_idx.ndim != 3:
+        raise ValueError(
+            f"page_idx must be (B, Hkv, K) or (B, 1, K); got shape "
+            f"{tuple(page_idx.shape)}")
+    heads = page_idx.shape[1]
+    if heads not in (1, hkv):
+        raise ValueError(
+            f"page_idx head axis must be 1 (shared sector set) or Hkv="
+            f"{hkv}; got {heads} — a mismatched head axis would steer "
+            f"every head through the wrong page schedule")
+    return heads == 1 and hkv > 1
+
+
+def _check_shapes(q, k_pages, v_pages, page_idx, length, k_scale, v_scale):
+    if q.ndim != 4 or k_pages.ndim != 5:
+        raise ValueError(
+            f"q must be (B, Hkv, rep, hd) and k_pages (B, P, page, Hkv, hd); "
+            f"got {tuple(q.shape)} and {tuple(k_pages.shape)}")
+    B, Hkv, _, hd = q.shape
+    Bk, _, _, Hk, hdk = k_pages.shape
+    if (Bk, Hk, hdk) != (B, Hkv, hd) or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"cache pages {tuple(k_pages.shape)} / {tuple(v_pages.shape)} do "
+            f"not match q {tuple(q.shape)}")
+    if page_idx.shape[0] != B or tuple(length.shape) != (B,):
+        raise ValueError(
+            f"page_idx {tuple(page_idx.shape)} and length "
+            f"{tuple(length.shape)} must lead with B={B}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is not None:
+        want = (B, k_pages.shape[1], Hkv)
+        if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+            raise ValueError(f"k_scale/v_scale must be {want}; got "
+                             f"{tuple(k_scale.shape)}/{tuple(v_scale.shape)}")
+
+
+def attend_pages(qg, k_sel, v_sel, valid):
+    """Masked softmax attention over gathered pages, and per-page mass.
+
+    qg (B, Hkv, rep, hd); k_sel/v_sel (B, Hkv, K, page, hd) — bf16 on the
+    serving path, f32 once dequantized; valid (B, Hkv, K, page) bool.
+    Returns ``(out (B, Hkv, rep, hd) f32, mass (B, Hkv, K) f32)``.
+
+    Products of the operands are exact in f32 (the reference's bf16
+    einsums with ``preferred_element_type=f32``); ``e`` is cast to the V
+    dtype before the output contraction (``e.astype(v.dtype)``: bf16 on
+    the serving path, a no-op for dequantized f32 V). The sqrt divisor is a
+    0-dim tensor on the device (a fill, no host copy) so CUDA divides
+    instead of multiplying by a reciprocal.
+    """
+    hd = qg.shape[-1]
+    scores = torch.einsum("bgrk,bgcpk->bgrcp", qg.to(k_sel.dtype).float(),
+                          k_sel.float())
+    scores = scores / torch.sqrt(
+        torch.full((), hd, dtype=torch.float32, device=scores.device))
+    vmask = valid[:, :, None]
+    scores = torch.where(vmask, scores, NEG_INF)
+    m = torch.amax(scores, dim=(-2, -1), keepdim=True)
+    e = torch.where(vmask, torch.exp(scores - m), 0.0)
+    num = torch.einsum("bgrcp,bgcpk->bgrk", e.to(v_sel.dtype).float(),
+                       v_sel.float())
+    den = torch.sum(e, dim=(-2, -1))[..., None]
+    out = num / torch.clamp_min(den, 1e-30)
+    mass = torch.sum(e, dim=(2, 4)) / torch.clamp_min(
+        torch.sum(e, dim=(2, 3, 4))[..., None], 1e-30)
+    return out, mass
+
+
+def gather_pages(pages: torch.Tensor, page_idx: torch.Tensor) -> torch.Tensor:
+    """(B, P, page, Hkv, hd) page-major cache + (B, Hkv, K) indices ->
+    (B, Hkv, K, page, hd), the selected pages of each head."""
+    B, _, _, hkv, _ = pages.shape
+    b = torch.arange(B, device=pages.device)[:, None, None]
+    h = torch.arange(hkv, device=pages.device)[None, :, None]
+    return pages.permute(0, 3, 1, 2, 4)[b, h, page_idx.long()]
+
+
+def sectored_attention_paged_ref(q, k_pages, v_pages, page_idx, length, *,
+                                 k_scale=None, v_scale=None):
+    """Plain PyTorch version of :func:`sectored_attention_paged` (same
+    arguments, same results up to the order of float sums)."""
+    _check_page_idx(page_idx, k_pages.shape[3])
+    _check_shapes(q, k_pages, v_pages, page_idx, length, k_scale, v_scale)
+    B, Hkv = q.shape[:2]
+    page = k_pages.shape[2]
+    pages = page_idx.expand(B, Hkv, page_idx.shape[-1])
+    k_sel = gather_pages(k_pages, pages)
+    v_sel = gather_pages(v_pages, pages)
+    if k_scale is not None:
+        # dequantize in f32 with the one scale of each (page, head) sector
+        ks = gather_pages(k_scale[:, :, None, :, None], pages)
+        vs = gather_pages(v_scale[:, :, None, :, None], pages)
+        k_sel = k_sel.float() * ks
+        v_sel = v_sel.float() * vs
+        q = q.float()
+    tok_pos = (pages[..., None] * page
+               + torch.arange(page, device=pages.device))
+    valid = tok_pos < length[:, None, None, None]
+    return attend_pages(q, k_sel, v_sel, valid)
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+@functools.cache
+def _bind(lib: ctypes.CDLL):
+    """The library's C entries with their argument types: the two
+    flavors' launchers and the scratch size (in f32 elements) a call
+    needs."""
+    fns = {}
+    for flavor, n_ptrs in (("bf16", 8), ("int8", 10)):
+        fn = getattr(lib, f"sectored_attention_paged_{flavor}")
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[flavor] = fn
+    fn = lib.sectored_attention_paged_scratch
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    fns["scratch"] = fn
+    return fns
+
+
+def sectored_attention_paged(q, k_pages, v_pages, page_idx, length, *,
+                             k_scale=None, v_scale=None):
+    """Serving-path attention over predictor-selected KV pages.
+
+    q (B, Hkv, rep, hd) bf16; k_pages/v_pages (B, P, page, Hkv, hd) bf16,
+    or int8 with ``k_scale``/``v_scale`` (B, P, Hkv) f32; page_idx
+    (B, Hkv, K) or (B, 1, K) int32 (a singleton head axis is one shared
+    page set per sequence); length (B,) int32 count of valid tokens,
+    including the token appended this step.
+
+    Returns ``(out (B, Hkv, rep, hd) f32, mass (B, Hkv, K) f32)``.
+
+    CPU tensors take :func:`sectored_attention_paged_ref`. CUDA tensors
+    launch the kernel on the current stream (no synchronisation) and count
+    the launch in ``launches``; anything the kernel does not take raises.
+    """
+    _check_page_idx(page_idx, k_pages.shape[3])
+    _check_shapes(q, k_pages, v_pages, page_idx, length, k_scale, v_scale)
+    tensors = [q, k_pages, v_pages, page_idx, length]
+    if k_scale is not None:
+        tensors += [k_scale, v_scale]
+    if not backend.uses_kernel(*tensors):
+        return sectored_attention_paged_ref(q, k_pages, v_pages, page_idx,
+                                            length, k_scale=k_scale,
+                                            v_scale=v_scale)
+    flavor = "bf16" if k_scale is None else "int8"
+    kv_dtype = torch.bfloat16 if flavor == "bf16" else torch.int8
+    want = {"q": (q, torch.bfloat16), "k_pages": (k_pages, kv_dtype),
+            "v_pages": (v_pages, kv_dtype), "page_idx": (page_idx, torch.int32),
+            "length": (length, torch.int32)}
+    if k_scale is not None:
+        want.update(k_scale=(k_scale, torch.float32),
+                    v_scale=(v_scale, torch.float32))
+    for name, (t, dtype) in want.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{flavor} kernel: {name} must be {dtype}, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{flavor} kernel: {name} must be contiguous "
+                             f"(the page-major view of a contiguous "
+                             f"(B, S, Hkv, hd) cache is)")
+    B, Hkv, rep, hd = q.shape
+    _, P, page, _, _ = k_pages.shape
+    K = page_idx.shape[-1]
+    if hd % 32 or hd > 256:
+        raise ValueError(f"kernel needs head_dim % 32 == 0 and <= 256; "
+                         f"got {hd}")
+    fns = _bind(build.load(SOURCE))
+    out = torch.empty((B, Hkv, rep, hd), dtype=torch.float32,
+                      device=q.device)
+    mass = torch.empty((B, Hkv, K), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((fns["scratch"](B, Hkv, rep, hd, page, K),),
+                          dtype=torch.float32, device=q.device)
+    fn = fns[flavor]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = [_ptr(q), _ptr(k_pages), _ptr(v_pages)]
+    if flavor == "int8":
+        ptrs += [_ptr(k_scale), _ptr(v_scale)]
+    ptrs += [_ptr(page_idx), _ptr(length), _ptr(out), _ptr(mass),
+             _ptr(scratch)]
+    with torch.cuda.device(q.device):
+        err = fn(*ptrs, B, Hkv, rep, hd, P, page, K, page_idx.shape[1],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"sectored_attention_paged_{flavor} launch "
+                           f"failed: CUDA error {err}")
+    launches[flavor] += 1
+    return out, mass

@@ -1,0 +1,89 @@
+"""DecodeBackend container and the fused greedy wave (counterpart of the
+JAX package's ``serve/backend.py``).
+
+A backend bundles the data path: ``prefill_fn``, dense ``decode_fn``,
+``sectored_fn`` and ``demand_merge_fn``. :func:`fused_select_step`
+composes a decode step with on-device token selection, the stop guard and
+the token's logprob; :func:`make_fused_wave` is the wave the session runs.
+The reference vmaps a per-slot step over stacked slot states; here the
+slot axis IS the batch axis of one state, so the wave is one batched call.
+
+Leaf-level: imports nothing from ``repro_torch.runtime``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.sample import SamplerRows, greedy_select, token_logprob
+
+
+class ServingBackend:
+    """Concrete DecodeBackend over four loose callables."""
+
+    def __init__(self, prefill_fn: Callable, decode_fn: Callable,
+                 sectored_fn: Callable | None = None,
+                 demand_merge_fn: Callable | None = None, *,
+                 vocab: int | None = None):
+        self.prefill_fn = prefill_fn
+        self.decode_fn = decode_fn
+        self.sectored_fn = sectored_fn
+        self.demand_merge_fn = demand_merge_fn
+        # vocabulary bound: ServeSession.submit rejects stop tokens past it
+        self.vocab = vocab
+
+    @property
+    def supports_sectored(self) -> bool:
+        return self.sectored_fn is not None
+
+    def sectored_fn_for(self, topk_frac: float | None) -> Callable:
+        """The sectored step for a policy-requested top-k fraction; the
+        base backend has one fixed step and ignores the hint."""
+        if self.sectored_fn is None:
+            raise ValueError("backend has no sectored decode path")
+        return self.sectored_fn
+
+    def merge_demands(self, stacked_state, group_ids):
+        if self.demand_merge_fn is None:
+            return stacked_state
+        return self.demand_merge_fn(stacked_state, group_ids)
+
+    def __repr__(self) -> str:
+        return (f"{type(self).__name__}(sectored={self.supports_sectored}, "
+                f"merge={self.demand_merge_fn is not None})")
+
+
+def fused_select_step(fn: Callable) -> Callable:
+    """Decode step with greedy token selection fused in.
+
+    Wraps ``fn(state, token) -> (logits, new_state)`` into
+    ``fused(state, token, rows) -> (tok, new_state, advanced_rows)``;
+    ``token`` and ``tok`` are ``(slots, 1)`` int32.
+
+    Stop guard (the EOS contract): a slot whose INPUT token is in its
+    stop set re-emits that token, keeps its RNG counter and reports
+    logprob 0, so a finished slot can never emit past EOS.
+    """
+    def fused(state, token: torch.Tensor, rows: SamplerRows):
+        logits, new_state = fn(state, token)
+        tok = greedy_select(logits)
+        last = token.reshape(token.shape[0], -1)[:, -1].to(torch.int32)
+        stopped = torch.any(last[:, None] == rows.stop, dim=-1)
+        tok = torch.where(stopped, last, tok)
+        lp = torch.where(stopped, 0.0, token_logprob(logits, tok))
+        advanced = rows.advance(hold=stopped)
+        return (tok[:, None], new_state,
+                dataclasses.replace(advanced, logp=lp))
+
+    return fused
+
+
+def make_fused_wave(fn: Callable) -> Callable:
+    """The session's wave: :func:`fused_select_step` over all slots at
+    once, advertising ``returns_tokens``."""
+    wave = fused_select_step(fn)
+    wave.returns_tokens = True
+    return wave
