@@ -11,6 +11,12 @@ one JSON line:
    plain PyTorch version on the same CUDA tensors at the yi-6b serving
    shapes and at the mask edges, with its time, the plain version's
    time, one PyTorch yardstick call and the card's bound;
+   ops — the ``repro_torch.kernels.ops`` path: head-major sectored
+   attention (f32, bf16), VBL gather and causal flash attention (bf16,
+   f32) called once each at realistic sizes with every launch counter at
+   0 just before and read just after (each must be > 0), then each kernel
+   vs its plain version over a sweep (VBL bitwise) and timed like the
+   paged kernel;
 3. main path — ``build_session`` serving 4 requests of ~768-token
    prompts at full yi-6b width (32 layers, random bf16 weights from a
    seeded generator) with the fused kernel, then with int8 KV (reusing
@@ -44,8 +50,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
+H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, same data sheet
 TPU_KERNEL = "src/repro/kernels/sectored_attention.py:283"
 KERNEL_SOURCE = "src/repro_torch/csrc/sectored_attention_paged.cu"
+# the kernels of the kernels.ops path: (CUDA source, Pallas call replaced)
+OPS_KERNELS = {
+    "sectored_attention": ("src/repro_torch/csrc/sectored_attention.cu",
+                           "src/repro/kernels/sectored_attention.py:206"),
+    "vbl_gather": ("src/repro_torch/csrc/vbl_gather.cu",
+                   "src/repro/kernels/vbl_gather.py:63"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:86"),
+}
 
 # kernel vs plain on the same CUDA tensors: f32 outputs of size ~1.
 # bf16 flavor: sums in another order move e by f32 ulps, which can flip
@@ -57,6 +73,14 @@ KERNEL_TOL = {"bf16": {"out": 2e-2, "mass": 1e-5},
 # bf16 ulp 0.03 there) after 32 layers of the attention difference above
 LOGIT_TOL = 0.25
 TABLE_TOL = 1e-3  # SHT entries are EMA masses in [0, 1]
+# kernels.ops path, kernel vs plain on the same CUDA tensors. Head-major
+# sectored attention: f32 arithmetic on both sides for either input dtype
+# (bf16 upcasts exactly, e stays f32), sums in another order, outputs of
+# size ~1. Flash: the reference's own allclose tolerances (rtol = atol,
+# tests/test_kernels.py); in bf16 both sides round an f32 result, at most
+# one bf16 ulp (2**-8 relative) apart. VBL gather moves bits: bitwise.
+HEAD_MAJOR_TOL = 1e-5
+FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
 
 
 def fail(msg: str):
@@ -108,13 +132,16 @@ def time_ms(fn, torch, iters: int = 20, warmup: int = 3) -> float:
 
 
 def make_case(torch, gen, *, B, Hkv, rep, hd, page, P, K, lengths,
-              shared=False):
+              shared=False, head_major=False, dtype=None):
+    """q, K/V pages, page_idx and length: page-major pages in bf16 (the
+    serving layout) or, with ``head_major``, (B, Hkv, P, page, hd) pages
+    in ``dtype``."""
     dev = gen.device
-    q = torch.randn((B, Hkv, rep, hd), generator=gen, device=dev).bfloat16()
-    kp = torch.randn((B, P, page, Hkv, hd), generator=gen,
-                     device=dev).bfloat16()
-    vp = torch.randn((B, P, page, Hkv, hd), generator=gen,
-                     device=dev).bfloat16()
+    dtype = dtype or torch.bfloat16
+    shape = (B, Hkv, P, page, hd) if head_major else (B, P, page, Hkv, hd)
+    q = torch.randn((B, Hkv, rep, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(shape, generator=gen, device=dev).to(dtype)
     length = torch.tensor(lengths, dtype=torch.int32, device=dev)
     heads = 1 if shared else Hkv
     rows = []
@@ -228,6 +255,264 @@ def time_flavor(torch, sa, case, flavor, args, kw):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops)
+
+
+# -- phase 2b: the kernels.ops path ------------------------------------------------
+
+
+def bound(nbytes: int, ops: int, ops_per_s: float):
+    """The least time the card could take: bytes at the HBM rate or
+    operations at ``ops_per_s``, whichever is longer."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+def peak_ops(torch, dtype) -> float:
+    return H100_OPS_PER_S["bf16"] if dtype == torch.bfloat16 \
+        else H100_F32_OPS_PER_S
+
+
+def head_major_cases(torch, gen, dtype):
+    """The paged phase's cases over the head-major layout, plus page 256;
+    the first is the decode shape the ops path runs and times."""
+    decode = dict(B=4, Hkv=4, rep=8, hd=128, page=128, P=16, K=5)
+    specs = {
+        "decode": dict(decode, lengths=[1500, 1800, 2000, 2048]),
+        "shared_heads": dict(decode, lengths=[769, 800, 700, 896],
+                             shared=True),
+        "ragged": dict(decode, lengths=[1, 130, 1000, 2048]),
+        "k_page_minus_1": dict(decode, lengths=[5 * 128 - 1] * 4),
+        "k_page": dict(decode, lengths=[5 * 128] * 4),
+        "k_page_plus_1": dict(decode, lengths=[5 * 128 + 1] * 4),
+        "k_eq_p": dict(decode, P=5, lengths=[640, 600, 129, 1]),
+        "page_256": dict(decode, page=256, P=8, K=4,
+                         lengths=[2048, 1000, 257, 255]),
+    }
+    return {name: make_case(torch, gen, head_major=True, dtype=dtype, **spec)
+            for name, spec in specs.items()}
+
+
+def head_major_bound(torch, case):
+    """Each input read once (only the selected pages' valid tokens of K and
+    V), the output written once; 4*rep*hd operations per valid token."""
+    q, kp, _, idx, length = case
+    B, Hkv, rep, hd = q.shape
+    page, K = kp.shape[3], idx.shape[-1]
+    starts = idx.long().expand(B, Hkv, K) * page
+    tokens = int((length.long()[:, None, None] - starts).clamp(0, page).sum())
+    nbytes = (q.numel() * q.element_size() + idx.numel() * 4
+              + length.numel() * 4 + 2 * tokens * hd * kp.element_size()
+              + B * Hkv * rep * hd * 4)
+    return bound(nbytes, 4 * rep * hd * tokens, peak_ops(torch, q.dtype))
+
+
+def flash_bound(torch, q, causal=True):
+    """q, k, v read once and the output written once; 4*hd operations per
+    (query, key) pair the mask keeps: S(S+1)/2 of them per head when
+    causal."""
+    B, H, S, hd = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return bound(4 * q.numel() * q.element_size(), 4 * B * H * pairs * hd,
+                 peak_ops(torch, q.dtype))
+
+
+def vbl_case(torch, gen, N, W, dtype):
+    data = torch.randn((N, 8, W), generator=gen, device=gen.device)
+    data = (data * 1000).to(dtype) if dtype == torch.int32 else data.to(dtype)
+    masks = torch.randint(0, 2 ** 32, (N,), generator=gen, device=gen.device,
+                          dtype=torch.int64)
+    masks[:3] = torch.tensor([0xFF, 0x00, 0xFFFFFF00], device=gen.device)
+    return data, masks  # int64 holding uint32 values
+
+
+def vbl_bound(torch, data, masks):
+    """Enabled sectors read once, all 8 slots written once, masks read and
+    counts written; no arithmetic."""
+    N, _, W = data.shape
+    enabled = int(((masks.to(torch.int64)[:, None]
+                    >> torch.arange(8, device=data.device)) & 1).sum())
+    item = data.element_size()
+    return bound(enabled * W * item + N * 8 * W * item + 8 * N, 0, 1.0)
+
+
+def ops_phase(torch, ops, sa, vg, fa):
+    """The kernels.ops path at realistic sizes, then every new kernel vs its
+    plain version, then times. Returns (record, kernel entries)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    hm = {"f32": head_major_cases(torch, gen, torch.float32),
+          "bf16": head_major_cases(torch, gen, torch.bfloat16)}
+    data, masks = vbl_case(torch, gen, 65536, 128, torch.float32)
+    vbl_in = (data, masks.to(torch.uint32))
+    flash_in = {flavor: [torch.randn((1, 32, 2048, 128), generator=gen,
+                                     device="cuda").to(dt)
+                         for _ in range(3)]
+                for flavor, dt in (("bf16", torch.bfloat16),
+                                   ("f32", torch.float32))}
+
+    # the path: every counter at 0 just before, read just after
+    ops.reset_launches()
+    path_out = {f"sectored_attention_{f}": ops.sectored_attention(
+        *cases["decode"]) for f, cases in hm.items()}
+    path_out["vbl_gather"] = ops.vbl_gather(*vbl_in)
+    for flavor, qkv in flash_in.items():
+        path_out[f"flash_attention_{flavor}"] = ops.flash_attention(
+            *qkv, causal=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items()
+                if k in path_out}
+    if any(n == 0 for n in launches.values()):
+        fail(f"a kernel of the kernels.ops path was never launched: "
+             f"{launches}")
+
+    worst, n_checks = ops_checks(torch, ops, sa, vg, fa, gen, hm, vbl_in,
+                                 flash_in, path_out)
+    timing = ops_times(torch, ops, sa, vg, fa, hm, vbl_in, flash_in)
+    entries = []
+    for name in path_out:
+        source, replaces = OPS_KERNELS[name.removesuffix("_f32")
+                                       .removesuffix("_bf16")]
+        t = timing[name]
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            path="kernels.ops", launches=launches[name],
+            max_abs_err=worst[name], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"]))
+    record = dict(phase="ops", launches=launches, max_abs_err=worst,
+                  checks=n_checks, timing=timing)
+    return record, entries
+
+
+def ops_checks(torch, ops, sa, vg, fa, gen, hm, vbl_in, flash_in, path_out):
+    """Each new kernel vs its plain version on the same CUDA tensors: the
+    path's outputs, then a sweep of cases. Fails on any miss; returns the
+    max abs error by kernel and the number of cases."""
+    worst = {name: 0.0 for name in path_out}
+    n_checks = [0]
+
+    def check(name, case, ok, err):
+        worst[name] = max(worst[name], err)
+        n_checks[0] += 1
+        if not ok:
+            fail(f"{name} disagrees with its plain version on case {case}: "
+                 f"max abs err {err}")
+
+    for flavor, cases in hm.items():
+        name = f"sectored_attention_{flavor}"
+        for case_name, case in cases.items():
+            got = (path_out[name] if case_name == "decode"
+                   else ops.sectored_attention(*case))
+            err = float((got - sa.sectored_attention_ref(*case)).abs().max())
+            check(name, case_name, err <= HEAD_MAJOR_TOL
+                  and bool(torch.isfinite(got).all()), err)
+
+    vbl_cases = {"path": (vbl_in, path_out["vbl_gather"])}
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        for W in (128, 3):
+            data, masks = vbl_case(torch, gen, 1000, W, dt)
+            for mdt in (torch.uint32, torch.int32, torch.int64):
+                args = (data, masks.to(mdt))
+                vbl_cases[f"{dt}_w{W}_{mdt}"] = (args, ops.vbl_gather(*args))
+    for case_name, (args, (out, counts)) in vbl_cases.items():
+        want, want_counts = vg.vbl_gather_ref(*args)
+        view = {torch.bfloat16: torch.int16,
+                torch.float32: torch.int32}.get(out.dtype, out.dtype)
+        same = (torch.equal(out.view(view), want.view(view))
+                and torch.equal(counts, want_counts)
+                and counts[:3].tolist() == [8, 0, 0])
+        check("vbl_gather", case_name, same,
+              float((out.float() - want.float()).abs().max()))
+
+    flash_cases = {f"{f}_path": (f, qkv, {}, path_out[f"flash_attention_{f}"])
+                   for f, qkv in flash_in.items()}
+    for flavor, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for shape in ((1, 1, 128, 64), (2, 2, 256, 64), (1, 4, 256, 128),
+                      (2, 1, 512, 32)):
+            qkv = [torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for _ in range(3)]
+            for causal in (True, False):
+                flash_cases[f"{flavor}_{shape}_causal={causal}"] = (
+                    flavor, qkv, dict(causal=causal), None)
+    qkv = [torch.randn((1, 2, 256, 64), generator=gen, device="cuda")
+           for _ in range(3)]
+    for bq, bk in ((64, 128), (128, 64), (64, 64)):  # tests/test_kernels.py
+        flash_cases[f"f32_blocks_{bq}x{bk}"] = (
+            "f32", qkv, dict(block_q=bq, block_k=bk), None)
+    for case_name, (flavor, qkv, kw, got) in flash_cases.items():
+        if got is None:
+            got = ops.flash_attention(*qkv, **kw)
+        want = fa.flash_attention_ref(*qkv, kw.get("causal", True))
+        diff = (got.float() - want.float()).abs()
+        tol = FLASH_TOL[flavor]
+        check(f"flash_attention_{flavor}", case_name,
+              bool((diff <= tol + tol * want.float().abs()).all())
+              and got.dtype == qkv[0].dtype, float(diff.max()))
+    return worst, n_checks[0]
+
+
+def ops_times(torch, ops, sa, vg, fa, hm, vbl_in, flash_in):
+    """Each new kernel at the path's sizes: its time, its plain version's,
+    one PyTorch call computing the same function (the yardstick, never
+    used by the port) and the card's bound."""
+    import torch.nn.functional as F
+    timing = {}
+    for flavor, cases in hm.items():
+        case = cases["decode"]
+        q, kp, vp, idx, length = case
+        B, Hkv, _, hd = q.shape
+        page = kp.shape[3]
+        pages = idx.expand(B, Hkv, idx.shape[-1]).long()
+        b = torch.arange(B, device="cuda")[:, None, None]
+        h = torch.arange(Hkv, device="cuda")[None, :, None]
+        k_sel = kp[b, h, pages].reshape(B, Hkv, -1, hd)
+        v_sel = vp[b, h, pages].reshape(B, Hkv, -1, hd)
+        pos = pages[..., None] * page + torch.arange(page, device="cuda")
+        mask = (pos < length.long()[:, None, None, None]).reshape(
+            B, Hkv, 1, -1)
+        timing[f"sectored_attention_{flavor}"] = dict(
+            ms=time_ms(lambda: ops.sectored_attention(*case), torch),
+            plain_ms=time_ms(lambda: sa.sectored_attention_ref(*case), torch),
+            # SDPA over the already gathered pages, with the validity mask
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k_sel, v_sel, attn_mask=mask), torch),
+            **head_major_bound(torch, case))
+
+    data, masks = vbl_in
+    # one row gather (index_select) over the sectors with a zero row
+    # appended, its index worked out outside the timing
+    rows = data.reshape(-1, data.shape[-1])
+    padded = torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
+    bits = (masks.to(torch.int64)[:, None]
+            >> torch.arange(8, device="cuda")) & 1
+    dest = torch.cumsum(bits, 1) - 1
+    index = torch.full((data.shape[0], 8), rows.shape[0], dtype=torch.int64,
+                       device="cuda")
+    n, s = torch.nonzero(bits, as_tuple=True)
+    index[n, dest[n, s]] = n * 8 + s
+    index = index.reshape(-1)
+    if not torch.equal(torch.index_select(padded, 0, index).view_as(data),
+                       vg.vbl_gather_ref(data, masks)[0]):
+        fail("the vbl_gather yardstick does not compute the same function")
+    timing["vbl_gather"] = dict(
+        ms=time_ms(lambda: ops.vbl_gather(data, masks), torch),
+        plain_ms=time_ms(lambda: vg.vbl_gather_ref(data, masks), torch),
+        library_ms=time_ms(lambda: torch.index_select(padded, 0, index),
+                           torch),
+        **vbl_bound(torch, data, masks))
+    del padded, index
+
+    for flavor, qkv in flash_in.items():
+        timing[f"flash_attention_{flavor}"] = dict(
+            ms=time_ms(lambda: ops.flash_attention(*qkv), torch),
+            plain_ms=time_ms(lambda: fa.flash_attention_ref(*qkv), torch),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                *qkv, is_causal=True), torch),
+            **flash_bound(torch, qkv[0]))
+    return timing
 
 
 # -- phase 3: the main path ----------------------------------------------------
@@ -446,8 +731,9 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch import configs
-    from repro_torch.kernels import build, quantized_kv
+    from repro_torch.kernels import build, flash_attention, ops, quantized_kv
     from repro_torch.kernels import sectored_attention as sa
+    from repro_torch.kernels import vbl_gather
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import model
     from repro_torch.runtime import sectored_decode
@@ -469,6 +755,13 @@ def main(argv=None) -> int:
 
     cases, worst, timing = kernel_phase(torch, sa, quantized_kv)
     records.append(dict(phase="kernels", cases=cases, timing=timing,
+                        card=card))
+    emit(records[-1])
+
+    t0 = time.perf_counter()
+    ops_record, ops_kernels = ops_phase(torch, ops, sa, vbl_gather,
+                                        flash_attention)
+    records.append(dict(ops_record, seconds=time.perf_counter() - t0,
                         card=card))
     emit(records[-1])
 
@@ -537,8 +830,10 @@ def main(argv=None) -> int:
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
     if not args.quick and any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel of the main path was never launched: {kernels}")
-    if any(not math.isfinite(k["ms"]) for k in kernels):
-        fail("non-finite kernel time")
+    kernels += ops_kernels
+    if any(not math.isfinite(k[key]) for k in kernels
+           for key in ("ms", "plain_ms", "bound_ms")):
+        fail("non-finite kernel time or bound")
     if args.out:
         path = Path(args.out)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -1,0 +1,6 @@
+"""Sector geometry of the port (counterpart of the JAX package's
+``core/sectors.py``, of which only this constant is needed so far)."""
+
+#: sectors per DRAM cache line: a 64-byte line of eight 8-byte sectors,
+#: each with its own enable bit (bits 8 and up of a mask are ignored)
+NUM_SECTORS = 8

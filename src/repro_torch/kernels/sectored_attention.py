@@ -1,5 +1,5 @@
-"""Paged sectored decode attention: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Sectored decode attention: the CUDA kernels' wrappers and their plain
+PyTorch versions, over the paged (serving) and the head-major layout.
 
 Counterpart of the JAX package's ``kernels/sectored_attention.py:
 sectored_attention_paged`` (the Pallas ``_paged_kernel``), the one kernel
@@ -20,8 +20,17 @@ sector-history table is updated with.
   runtime's dispatch path uses, so on the CPU the fused path is bitwise
   the dispatch path.
 
-``launches`` counts kernel launches per flavor; only the wrapper's CUDA
-branch increments it.
+* :func:`sectored_attention` — the same page steering over the
+  head-major layout ``(B, Hkv, P, page, hd)``, counterpart of the JAX
+  package's ``sectored_attention`` (the Pallas ``_ref_kernel``): q, k and
+  v in f32 or bf16, all arithmetic in f32 (``e`` is not rounded before
+  the output contraction) and no mass output. CPU tensors take
+  :func:`sectored_attention_ref`; CUDA tensors launch
+  ``csrc/sectored_attention.cu`` or raise.
+
+``launches`` (paged, per flavor) and ``head_major_launches`` (per input
+dtype) count kernel launches; only the wrappers' CUDA branches increment
+them.
 """
 
 from __future__ import annotations
@@ -37,13 +46,19 @@ NEG_INF = -1e30
 SOURCE = "sectored_attention_paged"
 FLAVORS = ("bf16", "int8")
 
-#: kernel launches by flavor since the last :func:`reset_launches`
+HEAD_MAJOR_SOURCE = "sectored_attention"
+HEAD_MAJOR_FLAVORS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+#: paged kernel launches by flavor since the last :func:`reset_launches`
 launches = {flavor: 0 for flavor in FLAVORS}
+#: head-major kernel launches by input dtype, reset with the paged ones
+head_major_launches = {flavor: 0 for flavor in HEAD_MAJOR_FLAVORS.values()}
 
 
 def reset_launches() -> None:
-    for flavor in FLAVORS:
-        launches[flavor] = 0
+    for counts in (launches, head_major_launches):
+        for flavor in counts:
+            counts[flavor] = 0
 
 
 def _check_page_idx(page_idx: torch.Tensor, hkv: int) -> bool:
@@ -245,3 +260,118 @@ def sectored_attention_paged(q, k_pages, v_pages, page_idx, length, *,
                            f"failed: CUDA error {err}")
     launches[flavor] += 1
     return out, mass
+
+
+# -- head-major layout ---------------------------------------------------------
+
+
+def _check_head_major(q, k_pages, v_pages, page_idx, length):
+    if q.ndim != 4 or k_pages.ndim != 5:
+        raise ValueError(
+            f"q must be (B, Hkv, rep, hd) and k_pages (B, Hkv, P, page, hd); "
+            f"got {tuple(q.shape)} and {tuple(k_pages.shape)}")
+    B, Hkv, _, hd = q.shape
+    Bk, Hk, _, _, hdk = k_pages.shape
+    if (Bk, Hk, hdk) != (B, Hkv, hd) or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"cache pages {tuple(k_pages.shape)} / {tuple(v_pages.shape)} do "
+            f"not match q {tuple(q.shape)}")
+    if page_idx.shape[0] != B or tuple(length.shape) != (B,):
+        raise ValueError(
+            f"page_idx {tuple(page_idx.shape)} and length "
+            f"{tuple(length.shape)} must lead with B={B}")
+    if (q.dtype not in HEAD_MAJOR_FLAVORS or k_pages.dtype != q.dtype
+            or v_pages.dtype != q.dtype):
+        raise TypeError(f"q, k_pages and v_pages must all be float32 or all "
+                        f"bfloat16; got {q.dtype}, {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    if page_idx.dtype != torch.int32 or length.dtype != torch.int32:
+        raise TypeError(f"page_idx and length must be int32; got "
+                        f"{page_idx.dtype} and {length.dtype}")
+    if hd % 32 or hd > 256:
+        raise ValueError(f"head_dim must be a multiple of 32 and <= 256; "
+                         f"got {hd}")
+
+
+def sectored_attention_ref(q, k_pages, v_pages, page_idx, length):
+    """Plain PyTorch version of :func:`sectored_attention`: the JAX
+    package's ``ref.sectored_attention_ref`` op for op (gather the selected
+    pages, f32 scores, count mask, one softmax over K x page, f32 ``e``
+    into the output contraction)."""
+    _check_page_idx(page_idx, k_pages.shape[1])
+    _check_head_major(q, k_pages, v_pages, page_idx, length)
+    B, Hkv = q.shape[:2]
+    page = k_pages.shape[3]
+    pages = page_idx.expand(B, Hkv, page_idx.shape[-1])
+    b = torch.arange(B, device=q.device)[:, None, None]
+    h = torch.arange(Hkv, device=q.device)[None, :, None]
+    k_sel = k_pages[b, h, pages.long()]
+    v_sel = v_pages[b, h, pages.long()]
+    tok_pos = (pages[..., None] * page
+               + torch.arange(page, device=pages.device))
+    valid = tok_pos < length[:, None, None, None]
+    # f32 V: attend_pages' cast of e to the V dtype is then a no-op
+    out, _ = attend_pages(q.float(), k_sel.float(), v_sel.float(), valid)
+    return out
+
+
+@functools.cache
+def _bind_head_major(lib: ctypes.CDLL):
+    fns = {}
+    for flavor in HEAD_MAJOR_FLAVORS.values():
+        fn = getattr(lib, f"sectored_attention_{flavor}")
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[flavor] = fn
+    fn = lib.sectored_attention_scratch
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    fns["scratch"] = fn
+    return fns
+
+
+def sectored_attention(q, k_pages, v_pages, page_idx, length):
+    """Attention over predictor-selected pages of a head-major cache.
+
+    q (B, Hkv, rep, hd); k_pages/v_pages (B, Hkv, P, page, hd), all three
+    float32 or all bfloat16, hd a multiple of 32 up to 256; page_idx
+    (B, Hkv, K) or (B, 1, K) int32 (a singleton head axis is one shared page
+    set per sequence); length (B,) int32 count of valid tokens.
+
+    Returns ``out (B, Hkv, rep, hd) f32``; 0 where no selected token is
+    valid. A page index repeated in ``page_idx`` is counted each time.
+
+    CPU tensors take :func:`sectored_attention_ref`. CUDA tensors launch the
+    kernel on the current stream (no synchronisation) and count the launch
+    in ``head_major_launches``; anything the kernel does not take raises.
+    """
+    _check_page_idx(page_idx, k_pages.shape[1])
+    _check_head_major(q, k_pages, v_pages, page_idx, length)
+    tensors = (q, k_pages, v_pages, page_idx, length)
+    if not backend.uses_kernel(*tensors):
+        return sectored_attention_ref(*tensors)
+    for name, t in zip(("q", "k_pages", "v_pages", "page_idx", "length"),
+                       tensors):
+        if not t.is_contiguous():
+            raise ValueError(f"sectored_attention kernel: {name} must be "
+                             f"contiguous")
+    B, Hkv, rep, hd = q.shape
+    _, _, P, page, _ = k_pages.shape
+    K = page_idx.shape[-1]
+    flavor = HEAD_MAJOR_FLAVORS[q.dtype]
+    fns = _bind_head_major(build.load(HEAD_MAJOR_SOURCE))
+    out = torch.empty((B, Hkv, rep, hd), dtype=torch.float32,
+                      device=q.device)
+    scratch = torch.empty((fns["scratch"](B, Hkv, rep, hd, page, K),),
+                          dtype=torch.float32, device=q.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = [_ptr(t) for t in (*tensors, out, scratch)]
+    with torch.cuda.device(q.device):
+        err = fns[flavor](*ptrs, B, Hkv, rep, hd, P, page, K,
+                          page_idx.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"sectored_attention_{flavor} launch failed: "
+                           f"CUDA error {err}")
+    head_major_launches[flavor] += 1
+    return out

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.kernels import quantized_kv, sectored_attention
+from repro_torch.kernels import (flash_attention, ops, quantized_kv,
+                                 sectored_attention, vbl_gather)
 from repro_torch.models import model
 from repro_torch.runtime import sectored_decode
 
@@ -113,3 +114,102 @@ def test_fused_step_close_to_dispatch(gpu):
     lp = (torch.log_softmax(lq.float(), -1)
           - torch.log_softmax(ld.float(), -1)).abs().max().item()
     assert lp <= quantized_kv.LOGPROB_TOL
+
+
+# -- the kernels.ops kernels (see chip_smoke.HEAD_MAJOR_TOL / FLASH_TOL) ------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("W", [128, 3])
+@pytest.mark.parametrize("mask_dtype", [torch.uint32, torch.int32,
+                                        torch.int64])
+def test_vbl_kernel_bitwise(gpu, dtype, W, mask_dtype):
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(2)
+    data = torch.randn((300, 8, W), generator=gen, device=gpu)
+    data = (data * 1000).to(dtype) if dtype == torch.int32 else data.to(dtype)
+    masks = torch.randint(0, 2 ** 32, (300,), generator=gen, device=gpu,
+                          dtype=torch.int64)
+    masks[:3] = torch.tensor([0xFF, 0x00, 0xFFFFFF00], device=gpu)
+    masks = masks.to(mask_dtype)
+    ops.reset_launches()
+    out, counts = ops.vbl_gather(data, masks)
+    torch.cuda.synchronize()
+    assert vbl_gather.launches == {"vbl_gather": 1}
+    want, want_counts = vbl_gather.vbl_gather_ref(data, masks)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(view), want.view(view))
+    assert torch.equal(counts, want_counts)
+    assert counts[:3].tolist() == [8, 0, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page,P,K,lengths,shared", [
+    (128, 16, 5, [1500, 1, 0, 2048], False),
+    (128, 6, 3, [383, 385], True),
+    (256, 4, 4, [1024, 255], False),
+], ids=["decode", "shared", "page256_k_eq_p"])
+def test_head_major_kernel_matches_plain(gpu, dtype, page, P, K, lengths,
+                                         shared):
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(3)
+    B, Hkv, rep, hd = len(lengths), 2, 8, 128
+    q = torch.randn((B, Hkv, rep, hd), generator=gen, device=gpu).to(dtype)
+    kp, vp = (torch.randn((B, Hkv, P, page, hd), generator=gen,
+                          device=gpu).to(dtype) for _ in range(2))
+    heads = 1 if shared else Hkv
+    idx = torch.stack([torch.sort(torch.randperm(P, generator=gen,
+                                                 device=gpu)[:K]).values
+                       for _ in range(B * heads)]).reshape(B, heads, K)
+    args = (q, kp, vp, idx.to(torch.int32),
+            torch.tensor(lengths, dtype=torch.int32, device=gpu))
+    ops.reset_launches()
+    out = ops.sectored_attention(*args)
+    torch.cuda.synchronize()
+    flavor = "f32" if dtype == torch.float32 else "bf16"
+    assert sectored_attention.head_major_launches[flavor] == 1
+    want = sectored_attention.sectored_attention_ref(*args)
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+    if 0 in lengths:
+        assert not out[lengths.index(0)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 128, 64), (2, 2, 256, 64),
+                                   (1, 4, 256, 128), (2, 1, 512, 32),
+                                   (1, 2, 32, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(gpu, dtype, shape, causal):
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=gen, device=gpu).to(dtype)
+               for _ in range(3))
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    flavor = "f32" if dtype == torch.float32 else "bf16"
+    assert flash_attention.launches[flavor] == 1 and out.dtype == dtype
+    want = flash_attention.flash_attention_ref(q, k, v, causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_ops_kernels_reject_what_they_do_not_take(gpu):
+    q = torch.randn((1, 1, 64, 64), device=gpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.flash_attention(q, q.cpu(), q)
+    data = torch.randn((4, 8, 16), device=gpu)
+    masks = torch.zeros(4, dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.vbl_gather(data.transpose(0, 2).contiguous().transpose(0, 2),
+                       masks)
+    kp = torch.randn((1, 1, 2, 16, 32), device=gpu)
+    idx = torch.zeros((1, 1, 1), dtype=torch.int32, device=gpu)
+    length = torch.ones(1, dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sectored_attention(torch.randn((1, 1, 2, 32), device=gpu), kp,
+                               kp.transpose(2, 3).contiguous()
+                               .transpose(2, 3), idx, length)
