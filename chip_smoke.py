@@ -6,11 +6,16 @@ From the root of a checkout: builds the port's CUDA kernels from
 ``src/repro_torch/csrc`` with nvcc, then runs these phases, each printing
 one JSON line:
 
-1. card — ``nvidia-smi`` name and power limit;
+1. card — ``nvidia-smi`` name and power limit; build — seconds, the
+   ``-Xptxas -v`` lines of every source (registers, shared memory,
+   spills) and the count of ``HGMMA`` (``wgmma``) instructions in the
+   flash library's SASS (``cuobjdump``; "not available" without it);
 2. kernels — each kernel (paged sectored attention, bf16 and int8) vs its
    plain PyTorch version on the same CUDA tensors at the yi-6b serving
-   shapes and at the mask edges, with its time, the plain version's
-   time, one PyTorch yardstick call and the card's bound;
+   shapes, at the mask edges, at K = P = 24 with ragged lengths (the
+   cluster's largest slice) and at K = 1 with one valid token, with its
+   time, the plain version's time, one PyTorch yardstick call and the
+   card's bound;
    ops — the ``repro_torch.kernels.ops`` path: head-major sectored
    attention (f32, bf16), VBL gather and causal flash attention (bf16,
    f32) called once each at realistic sizes with every launch counter at
@@ -23,7 +28,8 @@ one JSON line:
    the first run's prefill states, which do not depend on the kernel); launch
    counters must equal n_layers x sectored waves; one exact (prefill)
    step and one fused wave run under torch.profiler (device time by
-   kernel, the device's idle share); one wave from one prefilled state
+   kernel, the device's idle share; the wave must run the paged kernel
+   once per layer, in a non-zero time); one wave from one prefilled state
    compares fused with dispatch (and reports fused_q8's logprob error);
    then the reference's int8 gate (fused_q8 vs dispatch logprob error
    <= LOGPROB_TOL, teacher-forced) on the reduced config it is defined
@@ -53,6 +59,8 @@ H100_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}  # dense tensor-core peaks
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, same data sheet
 TPU_KERNEL = "src/repro/kernels/sectored_attention.py:283"
 KERNEL_SOURCE = "src/repro_torch/csrc/sectored_attention_paged.cu"
+# the paged kernel's name in a profile (one cluster launch per call)
+PAGED_KERNEL = "sectored_paged_cluster_kernel"
 # the kernels of the kernels.ops path: (CUDA source, Pallas call replaced)
 OPS_KERNELS = {
     "sectored_attention": ("src/repro_torch/csrc/sectored_attention.cu",
@@ -98,6 +106,31 @@ def card_line() -> str:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_lines(build) -> dict:
+    """The ``-Xptxas -v`` lines of each source this process built: entry
+    function, registers, shared memory, stack and spills."""
+    keys = ("Compiling entry", "registers", "spill", "smem")
+    return {name: [line.strip() for line in log.splitlines()
+                   if any(k in line for k in keys)]
+            for name, log in build.build_logs.items()}
+
+
+def hgmma_count(build):
+    """How many ``HGMMA`` (``wgmma``) instructions the flash library's
+    SASS holds, from ``cuobjdump -sass``; "not available" where the
+    toolkit has no ``cuobjdump``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "not available"
+    lib = build._target("flash_attention")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if sass.returncode != 0:
+        return "not available"
+    return sum("HGMMA" in line for line in sass.stdout.splitlines())
 
 
 # -- timing ------------------------------------------------------------------
@@ -192,6 +225,10 @@ def kernel_phase(torch, sa, qkv, dev="cuda", timed=True):
         "k_page": dict(serving, lengths=[5 * 128] * 4),
         "k_page_plus_1": dict(serving, lengths=[5 * 128 + 1] * 4),
         "k_eq_p": dict(serving, P=5, lengths=[640, 600, 129, 1]),
+        # K = P = 24 at ragged lengths: the cluster's largest slice (8
+        # blocks of 384 token slots)
+        "k_eq_p_24_ragged": dict(serving, K=24, lengths=[1, 1000, 2049, 3072]),
+        "k1_len1": dict(serving, K=1, lengths=[1, 1, 1, 1]),
     }
     results, worst = [], {"bf16": 0.0, "int8": 0.0}
     timing = {}
@@ -431,7 +468,8 @@ def ops_checks(torch, ops, sa, vg, fa, gen, hm, vbl_in, flash_in, path_out):
                    for f, qkv in flash_in.items()}
     for flavor, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         for shape in ((1, 1, 128, 64), (2, 2, 256, 64), (1, 4, 256, 128),
-                      (2, 1, 512, 32)):
+                      (2, 1, 512, 32), (1, 2, 32, 32), (1, 2, 32, 64),
+                      (1, 2, 32, 128)):
             qkv = [torch.randn(shape, generator=gen, device="cuda").to(dt)
                    for _ in range(3)]
             for causal in (True, False):
@@ -623,15 +661,14 @@ def profile_step(torch, label, fn, state, token):
         row[0] += evt.time_range.elapsed_us() / 1e3
         row[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
-    attn = {k: v for k, v in by_name.items()
-            if any(s in k for s in ("scores_kernel", "values_kernel",
-                                    "combine_kernel"))}
+    attn = {k: v for k, v in by_name.items() if PAGED_KERNEL in k}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     out = dict(phase="profile", step=label, batch=int(token.shape[0]),
                wall_ms=wall_ms, device_busy_ms=busy_ms,
                idle_share=1.0 - busy_ms / wall_ms,
                device_launches=sum(c for _, c in by_name.values()),
                sectored_attention_ms=sum(ms for ms, _ in attn.values()),
+               sectored_attention_launches=sum(c for _, c in attn.values()),
                top=[dict(name=k[:90], ms=ms, count=c)
                     for k, (ms, c) in top])
     emit(out)
@@ -746,11 +783,9 @@ def main(argv=None) -> int:
     emit(records[-1])
 
     build_s = build.build_all()
-    ptxas = [line.strip() for log in build.build_logs.values()
-             for line in log.splitlines()
-             if "registers" in line or "spill" in line]
     records.append(dict(phase="build", seconds=build_s,
-                        sources=build.sources(), ptxas=ptxas))
+                        sources=build.sources(), ptxas=ptxas_lines(build),
+                        flash_hgmma=hgmma_count(build)))
     emit(records[-1])
 
     cases, worst, timing = kernel_phase(torch, sa, quantized_kv)
@@ -790,9 +825,16 @@ def main(argv=None) -> int:
             torch.zeros((1, 1), dtype=torch.int32, device="cuda")))
         token = torch.tensor([[h.peek()[-1]] for h in handles],
                              dtype=torch.int32, device="cuda")
-        records.append(profile_step(
-            torch, "fused sectored wave", backend.sectored_fn_for(None),
-            sess.batched, token))
+        wave = profile_step(torch, "fused sectored wave",
+                            backend.sectored_fn_for(None), sess.batched,
+                            token)
+        records.append(wave)
+        if (wave["sectored_attention_launches"] != cfg.n_layers
+                or not wave["sectored_attention_ms"] > 0):
+            fail(f"the profiled fused wave ran {PAGED_KERNEL} "
+                 f"{wave['sectored_attention_launches']} times in "
+                 f"{wave['sectored_attention_ms']} ms; want one launch per "
+                 f"layer ({cfg.n_layers}) and a non-zero time")
         del state1
         _, _, rec = serve_run(torch, np, sa, launch_serve, cfg, params,
                               "fused_q8", cfg.n_layers, prefills)

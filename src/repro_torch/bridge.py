@@ -8,6 +8,10 @@ dtype is named ``bfloat16`` (itemsize 2, from ml_dtypes); it is carried
 over through its 16-bit pattern — ``.view(np.uint16)`` then
 ``torch.Tensor.view(torch.bfloat16)`` — so no value is rounded on the way.
 This module imports neither ``jax`` nor ``ml_dtypes``.
+
+Like every entry point of the port, ``device=None`` means the GPU
+(:func:`repro_torch.kernels.backend.resolve_device`) and raises where
+there is none; the CPU tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -15,9 +19,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.backend import resolve_device
 
-def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
-    """One array to a tensor, bit for bit (bf16 via its 16-bit pattern)."""
+
+def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
+    """One array to a tensor on ``device``, bit for bit (bf16 via its
+    16-bit pattern)."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         if a.dtype.itemsize != 2:
@@ -31,9 +39,10 @@ def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device=None):
     """A nested dict (or list) of numpy arrays -> the same structure of
     tensors on ``device``."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

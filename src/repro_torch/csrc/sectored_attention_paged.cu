@@ -17,55 +17,62 @@
 //   mass[c]    = sum_{r, p} e / max(sum_{r, c, p} e, 1e-30)
 //
 // What bounds it on this card: bytes. One decode call at the yi-6b serving
-// shapes (B=4, Hkv=4, K=5 pages of 128 x 128) moves about 5.2 MB of bf16
+// shapes (B=4, Hkv=4, K=5 pages of 128 x 128) moves about 4.75 MB of bf16
 // K and V (int8: half) against ~42 MFLOP, far below the ~295 FLOP/byte
-// ridge of an H100, so the kernel can only be as fast as its reads.
+// ridge of an H100, so the kernel can only be as fast as its reads; at
+// these sizes a launch and a few dependent memory latencies are the cost,
+// so the design spends one launch and no round trip through global memory.
 //
-// Design. The TPU kernel walks the K pages of one (b, h) in order on one
-// core and parks every selected V page in VMEM for one global softmax at
-// the last grid step; K = 8 pages of bf16 V would already be 256 KiB, more
-// than the 227 KB of shared memory a block can use, and K grows with the
-// sequence. Here nothing is bounded by shared memory, and the work of one
-// (b, h) is spread over K * ceil(page / 32) blocks so that the reads are
-// spread over the SMs (one block per (b, h) would use 16 of 132 SMs at
-// the serving shapes and wait on memory latency). Three launches on the
-// caller's stream, with a global f32 scratch the wrapper allocates:
-//   1. scores: one block per 32-token chunk of a selected page; one warp
-//      per token, K-row reads, dot products with the rep query rows held
-//      in shared memory, warp-shuffle sums; masked scores are -1e30;
-//   2. values: one block per chunk again; each block reduces the row
-//      maxima over all K x page scores of its (b, h) (the max is exact, so
-//      every block finds the same m), forms e = expf(s - m), writes its
-//      per-row sum of e, and accumulates e' * V over its tokens in f32;
-//   3. combine: one block per (b, h) adds the chunks' partial sums in a
-//      fixed order (deterministic, no atomics), divides by the row sums
-//      and writes the per-page mass.
-// Masked tokens are never read (neither K nor V). TMA, wgmma and a fused
-// single pass (online softmax across blocks) are later work.
+// Design: one launch, one thread-block cluster of C blocks per (b, h)
+// (C chosen by the wrapper from K * page, at most 8, or 16 where shared
+// memory needs it), no global scratch. The K * page token slots of a
+// (b, h) are cut into C contiguous slices, one per block (every block gets
+// at least one slot):
+//   1. each block puts every valid K and V row of its slice in flight at
+//      once (cp.async into shared memory; masked rows are zero-filled,
+//      never read), then computes the scores of its valid tokens for the
+//      `rep` query rows on the tensor cores (`mma` with bf16 operands: q
+//      and K are bf16, or K is int8, which bf16 holds exactly, with its
+//      scale applied to the f32 sum; the products are exact in f32),
+//      masked scores -1e30, and its local row maxima;
+//   2. the blocks exchange the maxima through distributed shared memory
+//      after a cluster barrier, so every block holds the exact global row
+//      max m before any e is formed, and the bf16 flavor rounds bf16(e)
+//      exactly where the reference does;
+//   3. each block forms e, its per-row and per-page sums of e, and its
+//      partial e' V (rep x hd) in f32, all in shared memory: on the tensor
+//      cores in the bf16 flavor (bf16(e) and bf16 V, exact products), on
+//      the CUDA cores in f32 in the int8 flavor, which keeps e and the
+//      dequantized V in f32;
+//   4. after a second cluster barrier the partials are reduced over
+//      distributed shared memory in rank order (each rank takes a share of
+//      the outputs), divided by the row sums, and written; a last barrier
+//      keeps every block's shared memory alive until all reads are done.
+// The sums are added in a fixed order: deterministic, no atomics. What is
+// left at these sizes is latency: two dependent trips to device memory
+// (page indices, then K and V rows), three cluster barriers and the
+// launch.
 //
 // Built without --use_fast_math: expf and IEEE division, like the plain
 // PyTorch version it is checked against.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cmath>
+#include <climits>
 #include <cstddef>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
-constexpr int kChunk = 32;  // tokens per block in passes 1 and 2
-constexpr int kRows = 8;    // query rows a thread accumulates at once
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 16;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may use
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -80,25 +87,75 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Geometry shared by the three passes and the wrapper's scratch size.
+__device__ __forceinline__ void load4(const int8_t* p, float (&x)[4]) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  x[0] = c.x;
+  x[1] = c.y;
+  x[2] = c.z;
+  x[3] = c.w;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// C += A B on the tensor cores, one 16 x 8 x 16 tile: bf16 operands in
+// `mma` fragments, f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the B fragments of a 16 x 8 tile of a row-major (k x n) bf16 matrix in
+// shared memory: lane l gives the address of row l % 16 of the tile
+template <typename T>
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
+                                              const T* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(row))));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Shape of one call, and the cluster plan the wrapper chose: C blocks per
+// (b, h), block `rank` taking token slots [rank * chunk, (rank + 1) * chunk)
+// of the K * page slots, cut at n.
 struct Geometry {
-  int Hkv, rep, hd, P, page, K, idx_heads;
-  __host__ __device__ int chunks_per_page() const {
-    return (page + kChunk - 1) / kChunk;
-  }
-  __host__ __device__ int chunks() const { return K * chunks_per_page(); }
+  int Hkv, rep, hd, P, page, K, idx_heads, C, chunk;
   __host__ __device__ int n() const { return K * page; }
-  // f32 scratch of one (b, h): scores (rep, K*page), then the chunks'
-  // partial numerators (chunks, rep, hd), then their row sums (chunks, rep)
-  __host__ __device__ size_t scratch_per_bh() const {
-    return size_t(rep) * n() + size_t(chunks()) * rep * hd +
-           size_t(chunks()) * rep;
-  }
 };
 
-// The selected page of chunk slot c for block (b, h), or -1 when the index
-// lies outside [0, P): such a page selects nothing, its tokens stay masked
-// and are never read (the plain version raises on it).
+// shared memory of one block, in this order: K rows (T, padded by 16
+// bytes) and V rows, each rounded up to 16 rows, then floats (q with rows
+// padded by 4, scores with rows of chunk + 1, partial numerator, local and
+// global row maxima, local and global row sums, page mass, per-slot column
+// sums and K and V scales), then the per-slot cache rows (int)
+template <typename T>
+__host__ __device__ size_t smem_bytes(const Geometry& g) {
+  const size_t floats = size_t(g.rep) * (2 * g.hd + 4) +
+                        size_t(g.rep) * (g.chunk + 1) + 4 * size_t(g.rep) +
+                        size_t(g.K) + 3 * size_t(g.chunk);
+  // whole 16-row tiles of K and V, K's rows padded by 16 bytes
+  const size_t rows16 = (size_t(g.chunk) + 15) & ~size_t(15);
+  return rows16 * (2 * g.hd * sizeof(T) + 16) + 4 * floats +
+         4 * size_t(g.chunk);
+}
+
+// The selected page of slot c for (b, h), or -1 when the index lies
+// outside [0, P): such a page selects nothing, its tokens stay masked and
+// are never read (the plain version raises on it).
 __device__ __forceinline__ int selected_page(const int32_t* page_idx,
                                              const Geometry& g, int b, int h,
                                              int c) {
@@ -107,276 +164,384 @@ __device__ __forceinline__ int selected_page(const int32_t* page_idx,
   return (pg >= 0 && pg < g.P) ? pg : -1;
 }
 
-// tokens [p0, p_end) of page pg hold valid positions (< len); 0 if none
-__device__ __forceinline__ int valid_end(int pg, int p0, int p1, int page,
-                                         long long len) {
-  if (pg < 0) return p0;
-  const long long fill = len - static_cast<long long>(pg) * page;
-  if (fill <= p0) return p0;
-  return fill < p1 ? static_cast<int>(fill) : p1;
-}
-
 template <typename T, bool kQuant>
-__global__ void __launch_bounds__(kThreads) scores_kernel(
+__global__ void __launch_bounds__(kThreads) sectored_paged_cluster_kernel(
     const __nv_bfloat16* __restrict__ q,  // (B, Hkv, rep, hd)
     const T* __restrict__ k,              // (B, P, page, Hkv, hd)
-    const float* __restrict__ k_scale,    // (B, P, Hkv), int8 flavor only
-    const int32_t* __restrict__ page_idx, // (B, idx_heads, K)
-    const int32_t* __restrict__ length,   // (B,) count of valid tokens
-    float* __restrict__ scratch, Geometry g) {
-  extern __shared__ float q_s[];  // rep * hd
-  const int b = blockIdx.x / g.Hkv;
-  const int h = blockIdx.x - b * g.Hkv;
-  const int cpp = g.chunks_per_page();
-  const int c = blockIdx.y / cpp;
-  const int p0 = (blockIdx.y - c * cpp) * kChunk;
-  const int p1 = min(p0 + kChunk, g.page);
-  const int rep = g.rep, hd = g.hd, n = g.n();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t bh = size_t(b) * g.Hkv + h;
-  const size_t tok_stride = size_t(g.Hkv) * hd;
-
-  const int pg = selected_page(page_idx, g, b, h, c);
-  const int pv = valid_end(pg, p0, p1, g.page, length[b]);
-  float* s_bh = scratch + bh * g.scratch_per_bh();
-  for (int i = threadIdx.x; i < rep * hd; i += blockDim.x)
-    q_s[i] = __bfloat162float(q[bh * rep * hd + i]);
-  for (int i = threadIdx.x; i < rep * (p1 - pv); i += blockDim.x) {
-    const int r = i / (p1 - pv);
-    s_bh[size_t(r) * n + c * g.page + pv + (i - r * (p1 - pv))] = kNegInf;
-  }
-  __syncthreads();
-
-  const float ksc =
-      (kQuant && pg >= 0) ? k_scale[(size_t(b) * g.P + pg) * g.Hkv + h] : 1.f;
-  const float root_hd = sqrtf(static_cast<float>(hd));
-  for (int p = p0 + warp; p < pv; p += nwarps) {
-    const T* krow =
-        k + ((size_t(b) * g.P + pg) * g.page + p) * tok_stride + size_t(h) * hd;
-    for (int r0 = 0; r0 < rep; r0 += kRows) {
-      float acc[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-#pragma unroll 4
-      for (int d = lane; d < hd; d += 32) {
-        float kv = to_f32(krow[d]);
-        if (kQuant) kv *= ksc;
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          if (r0 + i < rep) acc[i] += q_s[(r0 + i) * hd + d] * kv;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float s = warp_sum(acc[i]);
-        if (lane == 0 && r0 + i < rep)
-          s_bh[size_t(r0 + i) * n + c * g.page + p] = s / root_hd;
-      }
-    }
-  }
-}
-
-template <typename T, bool kQuant>
-__global__ void __launch_bounds__(kThreads) values_kernel(
     const T* __restrict__ v,              // (B, P, page, Hkv, hd)
+    const float* __restrict__ k_scale,    // (B, P, Hkv), int8 flavor only
     const float* __restrict__ v_scale,    // (B, P, Hkv), int8 flavor only
     const int32_t* __restrict__ page_idx, // (B, idx_heads, K)
-    const int32_t* __restrict__ length,   // (B,)
-    float* __restrict__ scratch, Geometry g) {
-  extern __shared__ float smem[];
-  float* m_s = smem;        // rep
-  float* e_s = m_s + g.rep; // rep * kChunk
-  const int b = blockIdx.x / g.Hkv;
-  const int h = blockIdx.x - b * g.Hkv;
-  const int cpp = g.chunks_per_page();
-  const int chunk = blockIdx.y;
-  const int c = chunk / cpp;
-  const int p0 = (chunk - c * cpp) * kChunk;
-  const int p1 = min(p0 + kChunk, g.page);
-  const int rep = g.rep, hd = g.hd, n = g.n();
+    const int32_t* __restrict__ length,   // (B,) count of valid tokens
+    float* __restrict__ out,              // (B, Hkv, rep, hd)
+    float* __restrict__ mass,             // (B, Hkv, K)
+    Geometry g) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / g.C;
+  const int b = bh / g.Hkv;
+  const int h = bh - b * g.Hkv;
+  const int rep = g.rep, hd = g.hd, page = g.page;
+  const int sp = g.chunk + 1;  // score row stride
+  const int j0 = rank * g.chunk;
+  const int nj = min(j0 + g.chunk, g.n()) - j0;  // this block's slots
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t bh = size_t(b) * g.Hkv + h;
   const size_t tok_stride = size_t(g.Hkv) * hd;
 
-  const int pg = selected_page(page_idx, g, b, h, c);
-  const int pv = valid_end(pg, p0, p1, g.page, length[b]);
-  const float* s_bh = scratch + bh * g.scratch_per_bh();
-  float* num = scratch + bh * g.scratch_per_bh() + size_t(rep) * n +
-               size_t(chunk) * rep * hd;
-  float* rsum = scratch + bh * g.scratch_per_bh() + size_t(rep) * n +
-                size_t(g.chunks()) * rep * hd + size_t(chunk) * rep;
+  extern __shared__ float4 smem4[];
+  // K and q rows are padded by 16 bytes (no bank conflicts); K and V
+  // hold whole 16-row tiles, the rows past the slice zero-filled
+  const int k_stride = hd + 16 / int(sizeof(T));
+  const int qs = hd + 4;
+  const int nj16 = (nj + 15) & ~15;
+  const int rows16 = (g.chunk + 15) & ~15;
+  T* k_s = reinterpret_cast<T*>(smem4);       // rows16 x k_stride
+  T* v_s = k_s + size_t(rows16) * k_stride;   // rows16 x hd
+  float* q_s = reinterpret_cast<float*>(v_s + size_t(rows16) * hd);
+  float* s_s = q_s + rep * qs;                           // rep x sp
+  float* acc_s = s_s + size_t(rep) * sp;                 // rep x hd
+  float* m_s = acc_s + rep * hd;                         // rep, local
+  float* gm_s = m_s + rep;                               // rep, global
+  float* rsum_s = gm_s + rep;                            // rep, local
+  float* den_s = rsum_s + rep;                           // rep, global
+  float* mass_s = den_s + rep;                           // K
+  float* colsum_s = mass_s + g.K;                        // chunk
+  float* ksc_s = colsum_s + g.chunk;                     // chunk
+  float* vsc_s = ksc_s + g.chunk;                        // chunk
+  int* tok_s = reinterpret_cast<int*>(vsc_s + g.chunk);  // chunk
 
-  // row maxima over every selected token of this (b, h)
-  for (int r = warp; r < rep; r += nwarps) {
-    const float* srow = s_bh + size_t(r) * n;
-    float m = -INFINITY;
-    for (int j = lane; j < n; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    if (lane == 0) m_s[r] = m;
+  // -- phase 1: the cache row of every slot (-1 when masked), then every
+  // valid K and V row of the slice in flight at once, then the scores --
+  for (int i = tid; i < rep * hd; i += kThreads)
+    q_s[(i / hd) * qs + i % hd] =
+        __bfloat162float(q[size_t(bh) * rep * hd + i]);
+  const long long len = length[b];
+  for (int t = tid; t < nj; t += kThreads) {
+    const int j = j0 + t;
+    const int c = j / page;
+    const int pg = selected_page(page_idx, g, b, h, c);
+    const int p = j - c * page;
+    const bool valid = pg >= 0 && static_cast<long long>(pg) * page + p < len;
+    tok_s[t] = valid ? (b * g.P + pg) * page + p : -1;
+    if (kQuant) {
+      const size_t sc = (size_t(b) * g.P + (valid ? pg : 0)) * g.Hkv + h;
+      ksc_s[t] = valid ? k_scale[sc] : 0.f;
+      vsc_s[t] = valid ? v_scale[sc] : 0.f;
+    }
   }
   __syncthreads();
-  for (int i = tid; i < rep * kChunk; i += blockDim.x) {
-    const int r = i / kChunk;
-    const int p = p0 + (i - r * kChunk);
-    e_s[i] = p < pv ? expf(s_bh[size_t(r) * n + c * g.page + p] - m_s[r])
-                    : 0.f;
-  }
-  __syncthreads();
-  for (int r = warp; r < rep; r += nwarps) {
-    float part = 0.f;
-    for (int t = lane; t < kChunk; t += 32) part += e_s[r * kChunk + t];
-    part = warp_sum(part);
-    if (lane == 0) rsum[r] = part;
-  }
 
-  // num[r, d] = sum over this chunk's valid tokens of e' * V[:, d]
-  const int groups = blockDim.x / hd;  // the wrapper keeps hd <= blockDim
-  const int grp = tid / hd;
-  const int d = tid - grp * hd;
-  if (grp >= groups) return;
-  const float vsc =
-      (kQuant && pg >= 0) ? v_scale[(size_t(b) * g.P + pg) * g.Hkv + h] : 1.f;
-  const T* vcol = v + (size_t(b) * g.P + (pg < 0 ? 0 : pg)) * g.page *
-                          tok_stride + size_t(h) * hd + d;
-  for (int rb = grp; rb < rep; rb += groups * kRows) {
-    float acc[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-#pragma unroll 8
-    for (int p = p0; p < pv; ++p) {
-      float vv = to_f32(vcol[size_t(p) * tok_stride]);
-      if (kQuant) vv *= vsc;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = rb + i * groups;
-        if (r < rep) {
-          float e = e_s[r * kChunk + (p - p0)];
-          // the bf16 flavor contracts bf16(e) with V, like the
-          // reference's e.astype(v.dtype); the int8 flavor keeps f32 e
-          if (!kQuant) e = __bfloat162float(__float2bfloat16_rn(e));
-          acc[i] += e * vv;
-        }
+  // the valid rows of K or V of this slice into shared memory, in flight
+  // as one commit group; half a warp a slot, a lane a 16-byte piece;
+  // masked rows, and the rows up to the next multiple of 16, are
+  // zero-filled and never read from the cache
+  auto fetch_rows = [&](const T* src, T* dst_s, int stride) {
+    constexpr int kElems = 16 / sizeof(T);  // elements per 16-byte copy
+    const int cpr = hd / kElems;
+    for (int t = 2 * warp + lane / 16; t < nj16; t += 2 * kWarps) {
+      const int tok = t < nj ? tok_s[t] : -1;
+      T* dst = dst_s + size_t(t) * stride;
+      const T* row = src + size_t(tok < 0 ? 0 : tok) * tok_stride +
+                     size_t(h) * hd;
+      for (int c = lane % 16; c < cpr; c += 16) {
+        if (tok >= 0)
+          cp_async16(dst + c * kElems, row + c * kElems);
+        else
+          *reinterpret_cast<uint4*>(dst + c * kElems) = make_uint4(0, 0, 0,
+                                                                  0);
       }
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  fetch_rows(k, k_s, k_stride);
+  fetch_rows(v, v_s, hd);
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // K has landed
+  __syncthreads();
+
+  const float root_hd = sqrtf(static_cast<float>(hd));
+  const int g8 = lane >> 2;  // mma fragments: row (or column) group
+  const int t4 = lane & 3;   // and the pair within it
+  // scores on the tensor cores: S = Q K^T in 16 x 8 tiles, bf16 operands
+  // (q is bf16; K is bf16, or int8, which bf16 holds exactly, its scale
+  // applied to the sum), products exact in f32, summed in f32. A warp
+  // takes two 8-slot tiles at a time, for two independent chains.
+  auto k_pair = [&](int row, int d) -> uint32_t {
+    const T* p = k_s + size_t(row) * k_stride + d;
+    if constexpr (kQuant) {
+      const char2 c = *reinterpret_cast<const char2*>(p);
+      return pack_bf16(c.x, c.y);
+    } else {
+      return *reinterpret_cast<const uint32_t*>(p);
+    }
+  };
+  for (int m0 = 0; m0 < rep; m0 += 16)
+    for (int n0 = 8 * warp; n0 < nj; n0 += 16 * kWarps) {
+      const int n1 = n0 + 8 * kWarps;  // the second tile, if any
+      float c[2][4] = {};
+#pragma unroll 2
+      for (int d0 = 0; d0 < hd; d0 += 16) {
+        uint32_t a[4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = rb + i * groups;
-      if (r < rep) num[size_t(r) * hd + d] = acc[i];
+        for (int u = 0; u < 4; ++u) {
+          const int r = m0 + g8 + 8 * (u & 1);
+          const float2 x =
+              r < rep ? *reinterpret_cast<const float2*>(
+                            q_s + r * qs + d0 + 2 * t4 + 8 * (u >> 1))
+                      : make_float2(0.f, 0.f);
+          a[u] = pack_bf16(x.x, x.y);
+        }
+        const int d = d0 + 2 * t4;
+        mma_bf16(c[0], a, k_pair(n0 + g8, d), k_pair(n0 + g8, d + 8));
+        if (n1 < nj)
+          mma_bf16(c[1], a, k_pair(n1 + g8, d), k_pair(n1 + g8, d + 8));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int r = m0 + g8 + 8 * (u >> 1);
+          const int t = (i ? n1 : n0) + 2 * t4 + (u & 1);
+          if (r < rep && t < nj) {
+            const float dot = kQuant ? c[i][u] * ksc_s[t] : c[i][u];
+            s_s[r * sp + t] = tok_s[t] >= 0 ? dot / root_hd : kNegInf;
+          }
+        }
+    }
+  __syncthreads();
+  for (int r = warp; r < rep; r += kWarps) {
+    float mx = kNegInf;
+    for (int t = lane; t < nj; t += 32) mx = fmaxf(mx, s_s[r * sp + t]);
+    mx = warp_max(mx);
+    if (lane == 0) m_s[r] = mx;
+  }
+
+  // -- the exact global row max, from every block's local maxima --
+  cluster.sync();
+  for (int r = tid; r < rep; r += kThreads) {
+    float x[kMaxCluster];
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c)
+      x[c] = c < g.C ? cluster.map_shared_rank(m_s, c)[r] : kNegInf;
+    float mx = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c) mx = fmaxf(mx, x[c]);
+    gm_s[r] = mx;
+  }
+  __syncthreads();
+
+  // -- phase 2: e, its row and page sums, and the partial e' V --
+  for (int r = 0; r < rep; ++r)
+    for (int t = tid; t < nj; t += kThreads)
+      s_s[r * sp + t] = tok_s[t] >= 0 ? expf(s_s[r * sp + t] - gm_s[r]) : 0.f;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // V has landed
+  __syncthreads();
+  for (int r = warp; r < rep; r += kWarps) {
+    float sum = 0.f;
+    for (int t = lane; t < nj; t += 32) sum += s_s[r * sp + t];
+    sum = warp_sum(sum);
+    if (lane == 0) rsum_s[r] = sum;
+  }
+  for (int t = tid; t < nj; t += kThreads) {
+    float sum = 0.f;
+    for (int r = 0; r < rep; ++r) sum += s_s[r * sp + t];
+    colsum_s[t] = sum;
+  }
+  __syncthreads();
+  for (int c = warp; c < g.K; c += kWarps) {  // 0 outside this slice
+    const int lo = max(c * page, j0) - j0;
+    const int hi = min((c + 1) * page, j0 + nj) - j0;
+    float sum = 0.f;
+    for (int t = lo + lane; t < hi; t += 32) sum += colsum_s[t];
+    sum = warp_sum(sum);
+    if (lane == 0) mass_s[c] = sum;
+  }
+
+  if constexpr (!kQuant) {
+    // e' V on the tensor cores in 16 x 8 tiles: e' = bf16(e), as the
+    // reference's e.astype(v.dtype) (the sums above took e unrounded), and
+    // bf16 V, so the products are exact in f32; a warp takes two 8-column
+    // tiles at a time, for two independent chains
+    for (int m0 = 0; m0 < rep; m0 += 16)
+      for (int n0 = 8 * warp; n0 < hd; n0 += 16 * kWarps) {
+        const int n1 = n0 + 8 * kWarps;  // the second tile, if any
+        float c[2][4] = {};
+#pragma unroll 2
+        for (int k0 = 0; k0 < nj16; k0 += 16) {
+          uint32_t a[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int r = m0 + g8 + 8 * (u & 1);
+            const int t = k0 + 2 * t4 + 8 * (u >> 1);
+            const float* er = s_s + r * sp + t;
+            a[u] = pack_bf16(r < rep && t < nj ? er[0] : 0.f,
+                             r < rep && t + 1 < nj ? er[1] : 0.f);
+          }
+          const T* vrow = v_s + size_t(k0 + (lane & 15)) * hd;
+          uint32_t b0, b1;
+          ldsm_x2_trans(b0, b1, vrow + n0);
+          mma_bf16(c[0], a, b0, b1);
+          if (n1 < hd) {
+            ldsm_x2_trans(b0, b1, vrow + n1);
+            mma_bf16(c[1], a, b0, b1);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int r = m0 + g8 + 8 * (u >> 1);
+            if (r < rep && (i == 0 || n1 < hd))
+              acc_s[r * hd + (i ? n1 : n0) + 2 * t4 + (u & 1)] = c[i][u];
+          }
+      }
+  } else {
+    // int8: thread (r, qd) accumulates columns 4 qd ... 4 qd + 3 of row r
+    // (and of r + rows_per_pass ...) in f32, e and the dequantized V in
+    // f32 as the reference keeps them; slots t = 0, 1, 2, 3 mod 4 go to
+    // four partial sums (instruction-level parallelism) added in a fixed
+    // order; masked slots hold e = 0 and zero V rows
+    const int quads = hd / 4;
+    const int rows_per_pass = kThreads / quads;
+    const int qd = tid % quads;
+    if (tid / quads < rows_per_pass) {
+      for (int r = tid / quads; r < rep; r += rows_per_pass) {
+        float a[4][4] = {};
+        const float* srow = s_s + r * sp;
+        const T* vcol = v_s + 4 * qd;
+        auto step = [&](int t, float (&acc)[4]) {
+          float vv[4];
+          load4(vcol + size_t(t) * hd, vv);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[u] += srow[t] * (vv[u] * vsc_s[t]);
+        };
+        int t = 0;
+        for (; t + 3 < nj; t += 4) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) step(t + j, a[j]);
+        }
+        for (; t < nj; ++t) step(t, a[0]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          acc_s[r * hd + 4 * qd + u] =
+              (a[0][u] + a[1][u]) + (a[2][u] + a[3][u]);
+      }
     }
   }
-}
 
-__global__ void __launch_bounds__(kThreads) combine_kernel(
-    const float* __restrict__ scratch, float* __restrict__ out,
-    float* __restrict__ mass, Geometry g) {
-  extern __shared__ float den_s[];  // rep
-  const int rep = g.rep, hd = g.hd, chunks = g.chunks();
-  const int cpp = g.chunks_per_page();
-  const size_t bh = blockIdx.x;
-  const float* num = scratch + bh * g.scratch_per_bh() + size_t(rep) * g.n();
-  const float* rsum = num + size_t(chunks) * rep * hd;
-
-  for (int r = threadIdx.x; r < rep; r += blockDim.x) {
+  // -- reduce the C partials in rank order, each rank a share of them --
+  cluster.sync();
+  for (int r = tid; r < rep; r += kThreads) {
+    float x[kMaxCluster];
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c)
+      x[c] = c < g.C ? cluster.map_shared_rank(rsum_s, c)[r] : 0.f;
     float den = 0.f;
-    for (int j = 0; j < chunks; ++j) den += rsum[size_t(j) * rep + r];
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c)
+      if (c < g.C) den += x[c];
     den_s[r] = den;
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < g.K; c += blockDim.x) {
-    float tot = 0.f, mc = 0.f;
-    for (int r = 0; r < rep; ++r) {
-      tot += den_s[r];
-      for (int j = c * cpp; j < (c + 1) * cpp; ++j) mc += rsum[size_t(j) * rep + r];
-    }
-    mass[bh * g.K + c] = mc / fmaxf(tot, 1e-30f);
+  const int total = rep * hd;
+  for (int i = rank * kThreads + tid; i < total; i += g.C * kThreads) {
+    float x[kMaxCluster];
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c)
+      x[c] = c < g.C ? cluster.map_shared_rank(acc_s, c)[i] : 0.f;
+    float num = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster; ++c)
+      if (c < g.C) num += x[c];
+    out[size_t(bh) * total + i] = num / fmaxf(den_s[i / hd], 1e-30f);
   }
-  for (int i = threadIdx.x; i < rep * hd; i += blockDim.x) {
-    float acc = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < chunks; ++j) acc += num[size_t(j) * rep * hd + i];
-    out[bh * rep * hd + i] = acc / fmaxf(den_s[i / hd], 1e-30f);
+  for (int c = rank * kThreads + tid; c < g.K; c += g.C * kThreads) {
+    float x[kMaxCluster];
+#pragma unroll
+    for (int q2 = 0; q2 < kMaxCluster; ++q2)
+      x[q2] = q2 < g.C ? cluster.map_shared_rank(mass_s, q2)[c] : 0.f;
+    float mc = 0.f, tot = 0.f;
+#pragma unroll
+    for (int q2 = 0; q2 < kMaxCluster; ++q2)
+      if (q2 < g.C) mc += x[q2];
+    for (int r = 0; r < rep; ++r) tot += den_s[r];
+    mass[size_t(bh) * g.K + c] = mc / fmaxf(tot, 1e-30f);
   }
-}
-
-template <typename Fn>
-cudaError_t allow_smem(Fn kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  cluster.sync();  // no block leaves while another reads its memory
 }
 
 template <typename T, bool kQuant>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* page_idx, const void* length,
-           void* out, void* mass, void* scratch, int B, int Hkv, int rep,
-           int hd, int P, int page, int K, int idx_heads, void* stream) {
+           void* out, void* mass, int B, int Hkv, int rep, int hd, int P,
+           int page, int K, int idx_heads, int C, int chunk, void* stream) {
   if (B * Hkv == 0) return 0;
-  if (hd > kThreads || hd % 32 != 0 || rep < 1 || K < 1 || page < 1)
+  const Geometry g{Hkv, rep, hd, P, page, K, idx_heads, C, chunk};
+  // the plan must give every block at least one slot, and cover all n
+  // a cache row is an int (token index) in the kernel
+  if (size_t(B) * P * page > size_t(INT_MAX)) return int(cudaErrorInvalidValue);
+  if (hd > 256 || hd % 32 != 0 || rep < 1 || K < 1 || page < 1 || C < 1 ||
+      C > kMaxCluster || chunk < 1 || (C - 1) * chunk >= g.n() ||
+      size_t(C) * chunk < size_t(g.n()))
     return int(cudaErrorInvalidValue);
-  const Geometry g{Hkv, rep, hd, P, page, K, idx_heads};
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* i32_idx = static_cast<const int32_t*>(page_idx);
-  const auto* i32_len = static_cast<const int32_t*>(length);
-  auto* f_scratch = static_cast<float*>(scratch);
-  const dim3 grid(B * Hkv, g.chunks());
-
-  auto scores = scores_kernel<T, kQuant>;
-  const size_t smem1 = sizeof(float) * size_t(rep) * hd;
-  cudaError_t err = allow_smem(scores, smem1);
+  const size_t smem = smem_bytes<T>(g);
+  if (smem > kMaxSmem) return int(cudaErrorInvalidValue);
+  auto kernel = sectored_paged_cluster_kernel<T, kQuant>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  scores<<<grid, kThreads, smem1, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
-      static_cast<const float*>(k_scale), i32_idx, i32_len, f_scratch, g);
-  err = cudaGetLastError();
+  if (C > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return int(err);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * B * Hkv);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int32_t*>(page_idx),
+      static_cast<const int32_t*>(length), static_cast<float*>(out),
+      static_cast<float*>(mass), g);
   if (err != cudaSuccess) return int(err);
-
-  auto values = values_kernel<T, kQuant>;
-  const size_t smem2 = sizeof(float) * size_t(rep) * (kChunk + 1);
-  err = allow_smem(values, smem2);
-  if (err != cudaSuccess) return int(err);
-  values<<<grid, kThreads, smem2, st>>>(
-      static_cast<const T*>(v), static_cast<const float*>(v_scale), i32_idx,
-      i32_len, f_scratch, g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return int(err);
-
-  const size_t smem3 = sizeof(float) * size_t(rep);
-  err = allow_smem(combine_kernel, smem3);
-  if (err != cudaSuccess) return int(err);
-  combine_kernel<<<B * Hkv, kThreads, smem3, st>>>(
-      f_scratch, static_cast<float*>(out), static_cast<float*>(mass), g);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// f32 elements of the scratch buffer one call needs
-extern "C" long long sectored_attention_paged_scratch(int B, int Hkv, int rep,
-                                                      int hd, int page,
-                                                      int K) {
-  const Geometry g{Hkv, rep, hd, 0, page, K, 1};
-  return static_cast<long long>(size_t(B) * Hkv * g.scratch_per_bh());
-}
-
+// q (B, Hkv, rep, hd) bf16; k, v (B, P, page, Hkv, hd); page_idx
+// (B, idx_heads, K) int32; length (B,) int32; out (B, Hkv, rep, hd) f32;
+// mass (B, Hkv, K) f32; every pointer 16-byte aligned. C blocks per
+// (b, h) in one cluster, block r taking token slots [r chunk, (r+1) chunk).
+// Returns a cudaError_t.
 extern "C" int sectored_attention_paged_bf16(
     const void* q, const void* k, const void* v, const void* page_idx,
-    const void* length, void* out, void* mass, void* scratch, int B, int Hkv,
-    int rep, int hd, int P, int page, int K, int idx_heads, void* stream) {
+    const void* length, void* out, void* mass, int B, int Hkv, int rep,
+    int hd, int P, int page, int K, int idx_heads, int C, int chunk,
+    void* stream) {
   return launch<__nv_bfloat16, false>(q, k, v, nullptr, nullptr, page_idx,
-                                      length, out, mass, scratch, B, Hkv, rep,
-                                      hd, P, page, K, idx_heads, stream);
+                                      length, out, mass, B, Hkv, rep, hd, P,
+                                      page, K, idx_heads, C, chunk, stream);
 }
 
 extern "C" int sectored_attention_paged_int8(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* page_idx, const void* length, void* out,
-    void* mass, void* scratch, int B, int Hkv, int rep, int hd, int P,
-    int page, int K, int idx_heads, void* stream) {
+    void* mass, int B, int Hkv, int rep, int hd, int P, int page, int K,
+    int idx_heads, int C, int chunk, void* stream) {
   return launch<int8_t, true>(q, k, v, k_scale, v_scale, page_idx, length,
-                              out, mass, scratch, B, Hkv, rep, hd, P, page, K,
-                              idx_heads, stream);
+                              out, mass, B, Hkv, rep, hd, P, page, K,
+                              idx_heads, C, chunk, stream);
 }

@@ -103,6 +103,10 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel: {name} must be "
                              f"contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel: {name} must be "
+                             f"16-byte aligned (its tiles load in 16-byte "
+                             f"copies)")
     B, H, S, hd = q.shape
     flavor = FLAVORS[q.dtype]
     out = torch.empty_like(q)

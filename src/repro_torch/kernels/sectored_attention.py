@@ -173,22 +173,68 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
+#: the most blocks of one cluster: 8 is portable, 16 needs the
+#: non-portable cluster size the kernel asks for
+CLUSTER_MAX = 8
+CLUSTER_MAX_NONPORTABLE = 16
+#: the fewest token slots worth a block of their own
+MIN_SLOTS_PER_BLOCK = 32
+#: the most shared memory one block may use on the card (227 KB)
+SMEM_LIMIT = 232448
+
+
+def paged_smem_bytes(rep: int, hd: int, K: int, chunk: int,
+                     kv_itemsize: int) -> int:
+    """Shared memory of one block of the paged kernel (``smem_bytes`` in
+    ``csrc/sectored_attention_paged.cu``): the slice's K rows (padded by
+    16 bytes) and V rows, each rounded up to 16 rows, then q (rows padded
+    by 4), the scores, the partial numerator, row statistics, the page mass
+    and per-slot sums and scales (f32), then per-slot cache rows
+    (int32)."""
+    floats = (rep * (2 * hd + 4) + rep * (chunk + 1) + 4 * rep + K
+              + 3 * chunk)
+    # whole 16-row tiles of K and V, K's rows padded by 16 bytes
+    rows16 = -(-chunk // 16) * 16
+    return rows16 * (2 * hd * kv_itemsize + 16) + 4 * floats + 4 * chunk
+
+
+def cluster_plan(K: int, page: int, rep: int, hd: int,
+                 kv_itemsize: int) -> tuple[int, int]:
+    """``(C, chunk)``: the paged kernel's cluster of C blocks per
+    (batch, kv-head), block r taking token slots ``[r * chunk,
+    min((r + 1) * chunk, K * page))``.
+
+    C grows with ``K * page`` up to ``CLUSTER_MAX`` (at least
+    ``MIN_SLOTS_PER_BLOCK`` slots a block), and up to
+    ``CLUSTER_MAX_NONPORTABLE`` where a block's shared memory needs it;
+    every block gets at least one slot. Raises when even 16 blocks cannot
+    hold a slice."""
+    n = K * page
+    for limit in (CLUSTER_MAX, CLUSTER_MAX_NONPORTABLE):
+        C = max(1, min(limit, -(-n // MIN_SLOTS_PER_BLOCK)))
+        if limit > CLUSTER_MAX:
+            C = limit
+        chunk = -(-n // C)
+        C = -(-n // chunk)
+        if paged_smem_bytes(rep, hd, K, chunk, kv_itemsize) <= SMEM_LIMIT:
+            return C, chunk
+    raise ValueError(
+        f"paged kernel: K*page={n} slots with rep={rep}, hd={hd} need more "
+        f"shared memory than a cluster of {CLUSTER_MAX_NONPORTABLE} blocks "
+        f"holds ({SMEM_LIMIT} bytes a block)")
+
+
 @functools.cache
 def _bind(lib: ctypes.CDLL):
     """The library's C entries with their argument types: the two
-    flavors' launchers and the scratch size (in f32 elements) a call
-    needs."""
+    flavors' launchers."""
     fns = {}
-    for flavor, n_ptrs in (("bf16", 8), ("int8", 10)):
+    for flavor, n_ptrs in (("bf16", 7), ("int8", 9)):
         fn = getattr(lib, f"sectored_attention_paged_{flavor}")
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[flavor] = fn
-    fn = lib.sectored_attention_paged_scratch
-    fn.argtypes = [ctypes.c_int] * 6
-    fn.restype = ctypes.c_longlong
-    fns["scratch"] = fn
     return fns
 
 
@@ -239,22 +285,23 @@ def sectored_attention_paged(q, k_pages, v_pages, page_idx, length, *,
     if hd % 32 or hd > 256:
         raise ValueError(f"kernel needs head_dim % 32 == 0 and <= 256; "
                          f"got {hd}")
-    fns = _bind(build.load(SOURCE))
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:  # rows are copied in 16-byte pieces
+            raise ValueError(f"{flavor} kernel: {name} must be 16-byte "
+                             f"aligned")
+    C, chunk = cluster_plan(K, page, rep, hd, k_pages.element_size())
+    fn = _bind(build.load(SOURCE))[flavor]
     out = torch.empty((B, Hkv, rep, hd), dtype=torch.float32,
                       device=q.device)
     mass = torch.empty((B, Hkv, K), dtype=torch.float32, device=q.device)
-    scratch = torch.empty((fns["scratch"](B, Hkv, rep, hd, page, K),),
-                          dtype=torch.float32, device=q.device)
-    fn = fns[flavor]
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = [_ptr(q), _ptr(k_pages), _ptr(v_pages)]
     if flavor == "int8":
         ptrs += [_ptr(k_scale), _ptr(v_scale)]
-    ptrs += [_ptr(page_idx), _ptr(length), _ptr(out), _ptr(mass),
-             _ptr(scratch)]
+    ptrs += [_ptr(page_idx), _ptr(length), _ptr(out), _ptr(mass)]
     with torch.cuda.device(q.device):
-        err = fn(*ptrs, B, Hkv, rep, hd, P, page, K, page_idx.shape[1],
-                 stream)
+        err = fn(*ptrs, B, Hkv, rep, hd, P, page, K, page_idx.shape[1], C,
+                 chunk, stream)
     if err != 0:
         raise RuntimeError(f"sectored_attention_paged_{flavor} launch "
                            f"failed: CUDA error {err}")

@@ -25,7 +25,7 @@ def f32(x) -> np.ndarray:
 def bf16_pair(rng, shape, scale=1.0):
     """The same bf16 values as a JAX array and a torch tensor."""
     j = jnp.asarray(rng.normal(size=shape) * scale, jnp.bfloat16)
-    return j, bridge.tensor_from_numpy(np.asarray(j))
+    return j, bridge.tensor_from_numpy(np.asarray(j), device="cpu")
 
 
 def small_models():
@@ -34,7 +34,8 @@ def small_models():
     jcfg = jconfigs.get("yi-6b").reduced(**SMALL)
     cfg = configs.get("yi-6b").reduced(**SMALL)
     jparams = jmodel.init_params(jcfg, jax.random.key(0))
-    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     return jcfg, cfg, jparams, params
 
 

@@ -213,3 +213,62 @@ def test_ops_kernels_reject_what_they_do_not_take(gpu):
         ops.sectored_attention(torch.randn((1, 1, 2, 32), device=gpu), kp,
                                kp.transpose(2, 3).contiguous()
                                .transpose(2, 3), idx, length)
+
+
+def _quantize(kp, vp, flavor):
+    if flavor == "bf16":
+        return kp, vp, {}
+    kq, ks = quantized_kv.quantize_pages(kp)
+    vq, vs = quantized_kv.quantize_pages(vp)
+    return kq, vq, dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("flavor", ["bf16", "int8"])
+@pytest.mark.parametrize("shape", [
+    # K = P = 24 at ragged lengths: the largest cluster slice (384 slots)
+    dict(B=4, Hkv=4, rep=8, hd=128, P=24, K=24,
+         lengths=[1, 1000, 2049, 3072]),
+    # one page, one valid token
+    dict(B=2, Hkv=4, rep=8, hd=128, P=24, K=1, lengths=[1, 1]),
+    # the serving shape: 5 pages of 24
+    dict(B=4, Hkv=4, rep=8, hd=128, P=24, K=5,
+         lengths=[769, 800, 700, 896]),
+], ids=["k_eq_p_24_ragged", "k1_len1", "serving"])
+def test_paged_kernel_one_launch_deterministic(gpu, flavor, shape):
+    """The cluster kernel vs plain, one launch per call, and two calls on
+    the same inputs bitwise equal (partial sums in a fixed order)."""
+    q, kp, vp, idx, length = _case(gpu, **shape, seed=5)
+    if shape["K"] == 1:  # the page that holds token 0
+        idx = torch.zeros_like(idx)
+    kp, vp, kwargs = _quantize(kp, vp, flavor)
+    sectored_attention.reset_launches()
+    out1, mass1 = sectored_attention.sectored_attention_paged(
+        q, kp, vp, idx, length, **kwargs)
+    out2, mass2 = sectored_attention.sectored_attention_paged(
+        q, kp, vp, idx, length, **kwargs)
+    torch.cuda.synchronize()
+    assert sectored_attention.launches[flavor] == 2
+    assert torch.equal(out1, out2) and torch.equal(mass1, mass2)
+    want_out, want_mass = sectored_attention.sectored_attention_paged_ref(
+        q, kp, vp, idx, length, **kwargs)
+    torch.testing.assert_close(out1, want_out, rtol=0, atol=OUT_TOL[flavor])
+    torch.testing.assert_close(mass1, want_mass, rtol=0, atol=MASS_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize("S", [32, 128, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_every_width(gpu, dtype, hd, S, causal):
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(6)
+    q, k, v = (torch.randn((1, 2, S, hd), generator=gen,
+                           device=gpu).to(dtype) for _ in range(3))
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    flavor = "f32" if dtype == torch.float32 else "bf16"
+    assert flash_attention.launches[flavor] == 1 and out.dtype == dtype
+    want = flash_attention.flash_attention_ref(q, k, v, causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)

@@ -9,6 +9,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 from repro_torch import bridge
@@ -48,17 +49,29 @@ def test_bridge_roundtrips_bf16_bitwise():
         -30, 30, 497), [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, 3e38]])
     a = np.asarray(jnp.asarray(vals.reshape(-1, 7), jnp.bfloat16))
     assert a.dtype.name == "bfloat16" and a.dtype.itemsize == 2
-    t = bridge.tensor_from_numpy(a)
+    t = bridge.tensor_from_numpy(a, device="cpu")
     assert t.dtype.is_floating_point and t.element_size() == 2
     np.testing.assert_array_equal(bridge.tensor_to_numpy_bits(t),
                                   a.view(np.uint16))
+
+
+@pytest.mark.parametrize("convert", [
+    lambda: bridge.tensor_from_numpy(np.zeros(3, np.float32)),
+    lambda: bridge.params_from_numpy({"a": [np.zeros(2, np.int32)]}),
+], ids=["tensor", "params"])
+def test_bridge_defaults_to_the_gpu(monkeypatch, convert):
+    """``device=None`` means the card, as at every entry point: without
+    one it raises instead of landing on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        convert()
 
 
 def test_bridge_keeps_tree_and_other_dtypes():
     tree = {"a": np.arange(6, dtype=np.int32).reshape(2, 3),
             "b": {"c": np.linspace(0, 1, 5, dtype=np.float32)},
             "d": [np.asarray(jnp.ones((2,), jnp.bfloat16))]}
-    out = bridge.params_from_numpy(tree)
+    out = bridge.params_from_numpy(tree, device="cpu")
     assert set(out) == {"a", "b", "d"} and set(out["b"]) == {"c"}
     np.testing.assert_array_equal(out["a"].numpy(), tree["a"])
     np.testing.assert_array_equal(out["b"]["c"].numpy(), tree["b"]["c"])

@@ -54,7 +54,7 @@ def no_launches_on_the_cpu():
 
 
 def to_torch(a) -> torch.Tensor:
-    return bridge.tensor_from_numpy(np.asarray(a))
+    return bridge.tensor_from_numpy(np.asarray(a), device="cpu")
 
 
 def bits(x) -> np.ndarray:

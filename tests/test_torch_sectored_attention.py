@@ -46,7 +46,7 @@ def make_case(seed, B, Hkv, rep, P, page, hd, K, *, shared=False,
 def run_both(case, quantized):
     q, kp, vp, idx, length = case
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, kp, vp))
-    tq, tk, tv = (bridge.tensor_from_numpy(np.asarray(a))
+    tq, tk, tv = (bridge.tensor_from_numpy(np.asarray(a), device="cpu")
                   for a in (jq, jk, jv))
     tidx, tlen = torch.from_numpy(idx), torch.from_numpy(length)
     if quantized:
@@ -101,7 +101,7 @@ def test_quantize_pages_matches_reference():
     pages = jnp.asarray(rng.normal(size=(2, 3, 16, 2, 32)) * 3, jnp.bfloat16)
     jq, js = jqkv.quantize_pages(pages)
     tq, ts = quantized_kv.quantize_pages(
-        bridge.tensor_from_numpy(np.asarray(pages)))
+        bridge.tensor_from_numpy(np.asarray(pages), device="cpu"))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(
