@@ -313,8 +313,10 @@ def peak_ops(torch, dtype) -> float:
 
 
 def head_major_cases(torch, gen, dtype):
-    """The paged phase's cases over the head-major layout, plus page 256;
-    the first is the decode shape the ops path runs and times."""
+    """The paged phase's cases over the head-major layout, plus page 256,
+    head widths 32 and 256, and slices too large to load whole (the tiled
+    walk, head_major_plan: 16 blocks of 256 slots of hd 256); the first is
+    the decode shape the ops path runs and times."""
     decode = dict(B=4, Hkv=4, rep=8, hd=128, page=128, P=16, K=5)
     specs = {
         "decode": dict(decode, lengths=[1500, 1800, 2000, 2048]),
@@ -327,6 +329,10 @@ def head_major_cases(torch, gen, dtype):
         "k_eq_p": dict(decode, P=5, lengths=[640, 600, 129, 1]),
         "page_256": dict(decode, page=256, P=8, K=4,
                          lengths=[2048, 1000, 257, 255]),
+        "hd_32": dict(decode, hd=32, lengths=[1500, 1, 700, 2048]),
+        "hd_256": dict(decode, hd=256, lengths=[1500, 1, 700, 2048]),
+        "tiled": dict(B=2, Hkv=2, rep=8, hd=256, page=256, P=16, K=16,
+                      lengths=[4096, 2500]),
     }
     return {name: make_case(torch, gen, head_major=True, dtype=dtype, **spec)
             for name, spec in specs.items()}

@@ -362,19 +362,95 @@ def sectored_attention_ref(q, k_pages, v_pages, page_idx, length):
     return out
 
 
+# The head-major kernel's constants (``csrc/sectored_attention.cu``):
+#: query rows one block takes (grid y covers more), warps of a block
+HM_ROWS = 64
+HM_WARPS = 8
+#: the slice's scores are kept whole up to this many bytes (else the tiled
+#: walk recomputes them tile by tile); the most ring stages
+HM_SCORE_BUDGET = 65536
+HM_MAX_STAGES = 8
+#: tile sizes the tiled walk tries, largest first
+HM_TILES = (128, 64, 32, 16)
+
+
+def _a16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def head_major_layout(rep: int, hd: int, itemsize: int, chunk: int,
+                      tile: int) -> tuple[int, int, bool]:
+    """``(smem bytes, ring stages, scores kept)`` of one block of the
+    head-major kernel (``smem_plan`` in ``csrc/sectored_attention.cu``):
+    the ring of K / V tiles (reused afterwards for the warps' partial e V
+    and row sums), the scores (the slice's, or a tile's where those do not
+    fit ``HM_SCORE_BUDGET``), the block's partial e V, four row statistics,
+    per-slot validity bytes and one mbarrier per stage. ``tile == chunk``
+    loads the slice whole in two stages (K and V)."""
+    rows = min(rep, HM_ROWS)
+    whole = tile >= chunk
+    nt = -(-chunk // tile)
+    store = whole or 4 * rows * (chunk + 1) <= HM_SCORE_BUDGET
+    sslots = chunk if store else tile
+    tile_bytes = tile * hd * itemsize
+    partial = 4 * 8 * HM_WARPS * (hd + 1)
+    fixed = (_a16(4 * rows * (sslots + 1)) + 4 * rows * hd + _a16(16 * rows)
+             + _a16(sslots))
+    if whole:
+        stages = 2
+    else:
+        room = max(0, SMEM_LIMIT - fixed - 8 * HM_MAX_STAGES)
+        stages = min(room // tile_bytes, (2 if store else 3) * nt,
+                     HM_MAX_STAGES)
+    ring = _a16(max(stages * tile_bytes, partial))
+    return ring + fixed + 8 * stages, stages, store
+
+
+def head_major_plan(K: int, page: int, rep: int, hd: int,
+                    itemsize: int) -> tuple[int, int, int]:
+    """``(C, chunk, tile)``: the head-major kernel's cluster of C blocks
+    per (batch, kv-head), block r taking token slots ``[r * chunk,
+    min((r + 1) * chunk, K * page))`` in tiles of ``tile`` slots.
+
+    Like :func:`cluster_plan`, C grows with ``K * page`` up to
+    ``CLUSTER_MAX`` (at least ``MIN_SLOTS_PER_BLOCK`` slots a block), and
+    to ``CLUSTER_MAX_NONPORTABLE`` where a block's shared memory needs it;
+    ``tile == chunk`` while the slice fits a block whole. Past that, 16
+    blocks walk their slices in the largest tile that leaves four ring
+    stages (else two, else one). Every shape the kernel takes gets a
+    plan."""
+    n = K * page
+    for limit in (CLUSTER_MAX, CLUSTER_MAX_NONPORTABLE):
+        C = max(1, min(limit, -(-n // MIN_SLOTS_PER_BLOCK)))
+        if limit > CLUSTER_MAX:
+            C = limit
+        chunk = -(-n // C)
+        C = -(-n // chunk)
+        if head_major_layout(rep, hd, itemsize, chunk,
+                             chunk)[0] <= SMEM_LIMIT:
+            return C, chunk, chunk
+    for want in (4, 2, 1):
+        for tile in HM_TILES:
+            if tile >= chunk:
+                continue
+            smem, stages, _ = head_major_layout(rep, hd, itemsize, chunk,
+                                                tile)
+            if stages >= want and smem <= SMEM_LIMIT:
+                return C, chunk, tile
+    raise ValueError(
+        f"head-major kernel: no plan for K*page={n} slots with rep={rep}, "
+        f"hd={hd}")
+
+
 @functools.cache
 def _bind_head_major(lib: ctypes.CDLL):
     fns = {}
     for flavor in HEAD_MAJOR_FLAVORS.values():
         fn = getattr(lib, f"sectored_attention_{flavor}")
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[flavor] = fn
-    fn = lib.sectored_attention_scratch
-    fn.argtypes = [ctypes.c_int] * 6
-    fn.restype = ctypes.c_longlong
-    fns["scratch"] = fn
     return fns
 
 
@@ -408,15 +484,14 @@ def sectored_attention(q, k_pages, v_pages, page_idx, length):
     K = page_idx.shape[-1]
     flavor = HEAD_MAJOR_FLAVORS[q.dtype]
     fns = _bind_head_major(build.load(HEAD_MAJOR_SOURCE))
+    C, chunk, tile = head_major_plan(K, page, rep, hd, q.element_size())
     out = torch.empty((B, Hkv, rep, hd), dtype=torch.float32,
                       device=q.device)
-    scratch = torch.empty((fns["scratch"](B, Hkv, rep, hd, page, K),),
-                          dtype=torch.float32, device=q.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
-    ptrs = [_ptr(t) for t in (*tensors, out, scratch)]
+    ptrs = [_ptr(t) for t in (*tensors, out)]
     with torch.cuda.device(q.device):
         err = fns[flavor](*ptrs, B, Hkv, rep, hd, P, page, K,
-                          page_idx.shape[1], stream)
+                          page_idx.shape[1], C, chunk, tile, stream)
     if err != 0:
         raise RuntimeError(f"sectored_attention_{flavor} launch failed: "
                            f"CUDA error {err}")

@@ -272,3 +272,103 @@ def test_flash_kernel_every_width(gpu, dtype, hd, S, causal):
     want = flash_attention.flash_attention_ref(q, k, v, causal)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _head_major_case(gpu, dtype, B, Hkv, rep, hd, page, P, K, lengths,
+                     idx=None, seed=7):
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(seed)
+    q = torch.randn((B, Hkv, rep, hd), generator=gen, device=gpu).to(dtype)
+    kp, vp = (torch.randn((B, Hkv, P, page, hd), generator=gen,
+                          device=gpu).to(dtype) for _ in range(2))
+    if idx is None:
+        idx = torch.stack([torch.sort(torch.randperm(
+            P, generator=gen, device=gpu)[:K]).values
+            for _ in range(B * Hkv)]).reshape(B, Hkv, K)
+    else:
+        idx = torch.tensor(idx, device=gpu)
+    return (q, kp, vp, idx.to(torch.int32),
+            torch.tensor(lengths, dtype=torch.int32, device=gpu))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 16 // t.element_size(), dtype=t.dtype,
+                       device=t.device)
+    out = flat[4 // t.element_size():][:t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+HEAD_MAJOR_CASES = {
+    "hd32": dict(B=2, Hkv=2, rep=8, hd=32, page=128, P=6, K=4,
+                 lengths=[700, 129]),
+    "hd64": dict(B=2, Hkv=2, rep=4, hd=64, page=128, P=6, K=4,
+                 lengths=[700, 129]),
+    # 16 query rows: two row groups a block
+    "hd256_rep16": dict(B=2, Hkv=2, rep=16, hd=256, page=128, P=6, K=4,
+                        lengths=[700, 129]),
+    "k_eq_p": dict(B=2, Hkv=2, rep=8, hd=128, page=128, P=6, K=6,
+                   lengths=[768, 300]),
+    "length_0": dict(B=2, Hkv=2, rep=8, hd=128, page=128, P=6, K=3,
+                     lengths=[0, 500]),
+    # page 2 twice in both heads of both sequences (pages 6 and 7 lie
+    # wholly past both lengths)
+    "repeated_page": dict(B=2, Hkv=2, rep=8, hd=128, page=128, P=8, K=3,
+                          lengths=[700, 768],
+                          idx=[[[2, 2, 4], [0, 2, 2]],
+                               [[2, 2, 5], [2, 3, 2]]]),
+    # 16 blocks of 256 slots too large to load whole: the tiled walk
+    "tiled": dict(B=2, Hkv=2, rep=8, hd=256, page=256, P=16, K=16,
+                  lengths=[4096, 2500]),
+    # 64 query rows over 512-slot slices: scores recomputed per tile
+    "tiled_recompute": dict(B=1, Hkv=1, rep=64, hd=256, page=256, P=32,
+                            K=32, lengths=[8000]),
+    # 72 query rows: a second block row (grid y)
+    "rep72": dict(B=1, Hkv=2, rep=72, hd=128, page=128, P=4, K=3,
+                  lengths=[500]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(HEAD_MAJOR_CASES))
+def test_head_major_one_launch_deterministic(gpu, dtype, name):
+    """The cluster kernel vs plain within 1e-5 (chip_smoke.HEAD_MAJOR_TOL),
+    one launch per call, two calls on the same inputs bitwise equal."""
+    spec = HEAD_MAJOR_CASES[name]
+    args = _head_major_case(gpu, dtype, **spec)
+    flavor = "f32" if dtype == torch.float32 else "bf16"
+    ops.reset_launches()
+    out1 = ops.sectored_attention(*args)
+    out2 = ops.sectored_attention(*args)
+    torch.cuda.synchronize()
+    assert sectored_attention.head_major_launches[flavor] == 2
+    assert torch.equal(out1, out2)
+    want = sectored_attention.sectored_attention_ref(*args)
+    torch.testing.assert_close(out1, want, rtol=0, atol=1e-5)
+    if 0 in spec["lengths"]:
+        assert not out1[spec["lengths"].index(0)].any()
+    if name == "repeated_page":
+        # each repeat counted: the second 2 of each row replaced by a page
+        # past the length (page 2 taken once) gives another output
+        q, kp, vp, _, length = args
+        once = torch.tensor([[[2, 7, 4], [0, 2, 7]], [[2, 7, 5], [2, 3, 7]]],
+                            dtype=torch.int32, device=gpu)
+        out_once = ops.sectored_attention(q, kp, vp, once, length)
+        torch.testing.assert_close(
+            out_once, sectored_attention.sectored_attention_ref(
+                q, kp, vp, once, length), rtol=0, atol=1e-5)
+        assert (out1 - out_once).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_major_misaligned_cache(gpu, dtype):
+    """K and V not 16-byte aligned: no bulk copies, the same result."""
+    args = list(_head_major_case(gpu, dtype, **HEAD_MAJOR_CASES["k_eq_p"]))
+    want = sectored_attention.sectored_attention_ref(*args)
+    args[1], args[2] = _misaligned(args[1]), _misaligned(args[2])
+    assert args[1].data_ptr() % 16 and args[1].is_contiguous()
+    out = ops.sectored_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
