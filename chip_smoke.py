@@ -24,14 +24,24 @@ one JSON line:
    paged kernel;
 3. main path — ``build_session`` serving 4 requests of ~768-token
    prompts at full yi-6b width (32 layers, random bf16 weights from a
-   seeded generator) with the fused kernel, then with int8 KV (reusing
-   the first run's prefill states, which do not depend on the kernel); launch
-   counters must equal n_layers x sectored waves; one exact (prefill)
-   step and one fused wave run under torch.profiler (device time by
-   kernel, the device's idle share; the wave must run the paged kernel
-   once per layer, in a non-zero time); one wave from one prefilled state
-   compares fused with dispatch (and reports fused_q8's logprob error);
-   then the reference's int8 gate (fused_q8 vs dispatch logprob error
+   seeded generator) with the fused kernel and with int8 KV
+   (``fused_q8``), each twice in one call: its prefill steps and decode
+   waves as replays of captured CUDA graphs (the default on the card),
+   then eagerly (``graphs=False``), reusing the first run's prefill
+   states (prefill does not depend on the kernel). Graph and eager must
+   give bitwise equal token streams, logprobs and final wave buffers; the
+   prefill graph is held bitwise against, and timed beside, one prompt
+   prefilled eagerly. Each run reports ms per wave, tokens/s, prefill s
+   and peak memory; launch counters, which replays advance by the
+   launches their capture holds, must equal n_layers x sectored waves.
+   The exact (prefill) step and the fused wave run under torch.profiler
+   eagerly and replayed (device time by kernel, the device's idle share;
+   each wave must run the paged kernel once per layer, in a non-zero
+   time); one wave from the final state compares fused with dispatch (and
+   reports fused_q8's logprob error); the 4 requests served with
+   ``dispatch`` give the greedy streams the fused ones are compared with
+   (the first divergence, if any, with its logit gaps); then the
+   reference's int8 gate (fused_q8 vs dispatch logprob error
    <= LOGPROB_TOL, teacher-forced) on the reduced config it is defined
    for;
 4. cli — ``repro_torch.launch.serve.main`` once (reduced config).
@@ -563,14 +573,19 @@ def ops_times(torch, ops, sa, vg, fa, hm, vbl_in, flash_in):
 
 
 def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
-              prefills, dev="cuda", lengths=(768, 770, 790, 800),
-              seq_len=2048):
-    """Serve the 4 requests through ``build_session`` with ``kernel``.
+              prefills, *, graphs=True, record=False, dev="cuda",
+              lengths=(768, 770, 790, 800), seq_len=2048):
+    """Serve the 4 requests through ``build_session`` with ``kernel``, its
+    waves and prefill as replays of captured CUDA graphs or, with
+    ``graphs=False``, eagerly.
 
     ``prefills`` (prompt bytes -> (logits, state)) carries prefill results
     from one run to the next: prefill runs the exact dispatch step
-    whatever the kernel, so the second run takes the first run's states
-    bit for bit instead of spending the time limit on recomputing them.
+    whatever the kernel, so later runs take the first run's states bit for
+    bit instead of spending the time limit on recomputing them (the eager
+    prefill is timed and held against them once, in :func:`main_path`).
+    ``record`` (eager runs only) keeps every wave's logits by request.
+    Returns (session, handles, record of the run, logits by request).
     """
     from repro_torch.serve import Request
 
@@ -579,11 +594,10 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
             torch.cuda.synchronize()
     sess = launch_serve.build_session(
         cfg, params, true_sectored=True, kernel=kernel, policy="sectored",
-        seq_len=seq_len, max_batch=4, device=dev)
+        seq_len=seq_len, max_batch=4, device=dev, graphs=graphs)
     backend = sess.backend
     prefill = backend.prefill_fn
-    prefill_s = [0.0]
-
+    prefill_s = []
     reused = [0]
 
     def timed_prefill(tokens):
@@ -596,10 +610,11 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
         t0 = time.perf_counter()
         logits, state = prefill(tokens)
         sync()
-        prefill_s[0] += time.perf_counter() - t0
+        prefill_s.append(time.perf_counter() - t0)
         prefills[key] = (logits.clone(), state.clone())
         return logits, state
     backend.prefill_fn = timed_prefill
+    logits_by_rid = record_logits(sess) if record else None
     rng = np.random.default_rng(0)
     lengths = list(lengths)
     handles = [sess.submit(Request(
@@ -609,54 +624,125 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
     sa.reset_launches()
+    wave_ms = []  # each step less the prefills it ran (admission)
     t0 = time.perf_counter()
-    stats = sess.run_until_drained()
-    sync()
+    while not sess.idle:
+        n_prefills = len(prefill_s)
+        t1 = time.perf_counter()
+        sess.step()
+        sync()
+        wave_ms.append((time.perf_counter() - t1
+                        - sum(prefill_s[n_prefills:])) * 1e3)
     total_s = time.perf_counter() - t0
+    stats = sess.stats
     launches = dict(sa.launches)
-    flavor = "int8" if kernel == "fused_q8" else "bf16"
-    other = "bf16" if flavor == "int8" else "int8"
-    decode_s = total_s - prefill_s[0]
+    decode_s = sum(wave_ms) / 1e3
     k = backend.k_for(None)
-    out = dict(phase="main_path", kernel=kernel, n_layers=n_layers,
-               completed=stats["completed"], waves=stats["waves"],
-               sectored_waves=stats["sectored_waves"],
-               decode_steps=stats["decode_steps"],
-               launches=launches, prefill_s=prefill_s[0],
-               prefills_reused=reused[0],
-               total_s=total_s, ms_per_wave=decode_s / stats["waves"] * 1e3,
+    captured = list(sess._wave_cache.values()) if backend.graphs else []
+    warmup = {}
+    for wave in captured:
+        for n_flavor, n in wave.warmup_launches[0].items():
+            warmup[n_flavor] = warmup.get(n_flavor, 0) + n
+    out = dict(phase="main_path", kernel=kernel, graphs=backend.graphs,
+               n_layers=n_layers, completed=stats["completed"],
+               waves=stats["waves"], sectored_waves=stats["sectored_waves"],
+               decode_steps=stats["decode_steps"], launches=launches,
+               warmup_launches=warmup,
+               graphs_captured=len(captured) + len(backend._prefill_graphs),
+               prefill_s=sum(prefill_s), prefill_s_by_prompt=prefill_s,
+               prefills_reused=reused[0], total_s=total_s,
+               ms_per_wave=decode_s / stats["waves"] * 1e3,
+               # the first wave captures its graph (and warms cuBLAS up)
+               first_wave_ms=wave_ms[0],
+               later_waves_median_ms=statistics.median(wave_ms[1:]),
                decode_tokens_per_s=stats["decode_steps"] / decode_s,
                peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
                             if dev == "cuda" else None),
                k_pages=k, probe_pages=backend.probe_pages_for(k),
-               padded_pages=backend.pages,
-               prompt_lengths=lengths)
+               padded_pages=backend.pages, prompt_lengths=lengths)
     emit(out)
     if not all(h.done for h in handles) or stats["completed"] != 4:
         fail(f"{kernel}: not every request completed: {stats}")
-    want = n_layers * stats["sectored_waves"]
-    if dev == "cuda" and (launches[flavor] != want or launches[other] != 0
-                          or want == 0):
-        fail(f"{kernel}: launches {launches}, want {flavor}={want} "
-             f"(n_layers x sectored waves) and {other}=0")
+    want = {"bf16": 0, "int8": 0}
+    if kernel != "dispatch":
+        want["int8" if kernel == "fused_q8" else "bf16"] = (
+            n_layers * stats["sectored_waves"])
+    if dev == "cuda" and (launches != want or stats["sectored_waves"] == 0):
+        fail(f"{kernel}: launches {launches}, want {want} (n_layers x "
+             f"sectored waves of the kernel's flavor)")
     for h in handles:
         if len(h.peek()) != 16:
             fail(f"{kernel}: request {h.rid} emitted {len(h.peek())} tokens")
-    return sess, handles, out
+    return sess, handles, out, logits_by_rid
 
 
-def profile_step(torch, label, fn, state, token):
-    """One decode step under ``torch.profiler``: its host time, the device
-    time of every kernel it ran, and the device's idle share of the step
-    (1 - busy / wall)."""
+def record_logits(sess):
+    """Wrap the eager steps of ``sess``'s backend so every wave's logits
+    are kept, by request id (a Python wrapper inside a captured graph
+    would run once, at capture: eager runs only)."""
+    if sess.backend.graphs:
+        fail("logits can be recorded from eager runs only")
+    by_rid: dict[int, list] = {}
+    for fn in sess.backend._k_cache.values():
+        def recording(state, token, step_=fn.step_):
+            logits = step_(state, token)
+            if token.shape[0] == sess.max_batch:
+                for slot in sess.active_slots():
+                    by_rid.setdefault(sess.slots[slot].rid, []).append(
+                        logits[slot].float().clone())
+            return logits
+        fn.step_ = recording
+    return by_rid
+
+
+def host_copy(torch, sess):
+    """The session's final wave buffer and sampler rows, on the host."""
+    from repro_torch.runtime.graphs import leaves
+    return [t.cpu() for t in leaves((sess.batched, sess._sampler_rows))]
+
+
+def same_results(torch, a, b) -> dict:
+    """Bitwise comparison of two runs of :func:`main_path`."""
+    return dict(
+        tokens=a["tokens"] == b["tokens"],
+        logprobs=a["logprobs"] == b["logprobs"],
+        final_state=all(torch.equal(x, y)
+                        for x, y in zip(a["final"], b["final"])))
+
+
+def stream_divergence(fused, dispatch):
+    """Where the fused and dispatch greedy streams of two runs of
+    :func:`main_path` first part, by request: the position, both tokens,
+    each run's logit gap between them and the two runs' largest logit
+    difference at that step."""
+    out = []
+    for rid, (a, b) in enumerate(zip(fused["tokens"], dispatch["tokens"])):
+        p = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        row = dict(rid=rid, agree=p is None, tokens=len(a))
+        if p is not None:
+            row.update(position=p, fused_token=a[p], dispatch_token=b[p])
+            if p > 0:  # token p came from the request's wave p - 1
+                lf = fused["logits"][rid][p - 1]
+                ld = dispatch["logits"][rid][p - 1]
+                row.update(
+                    fused_logit_gap=float(lf[a[p]] - lf[b[p]]),
+                    dispatch_logit_gap=float(ld[b[p]] - ld[a[p]]),
+                    logit_max_abs_diff=float((lf - ld).abs().max()))
+        out.append(row)
+    return out
+
+
+def profile_call(torch, label, run, batch):
+    """One call of ``run()`` under ``torch.profiler``: its host time, the
+    device time of every kernel it ran, and the device's idle share of
+    the call (1 - busy / wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    state = state.clone()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(state, token)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list] = {}
@@ -669,7 +755,7 @@ def profile_step(torch, label, fn, state, token):
     busy_ms = sum(ms for ms, _ in by_name.values())
     attn = {k: v for k, v in by_name.items() if PAGED_KERNEL in k}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    out = dict(phase="profile", step=label, batch=int(token.shape[0]),
+    out = dict(phase="profile", step=label, batch=batch,
                wall_ms=wall_ms, device_busy_ms=busy_ms,
                idle_share=1.0 - busy_ms / wall_ms,
                device_launches=sum(c for _, c in by_name.values()),
@@ -678,6 +764,51 @@ def profile_step(torch, label, fn, state, token):
                top=[dict(name=k[:90], ms=ms, count=c)
                     for k, (ms, c) in top])
     emit(out)
+    return out
+
+
+def event_ms(torch, run, n: int = 5) -> float:
+    """Median time of ``run()`` between CUDA events recorded just before
+    and after it, with no profiler: where the host launches op by op, the
+    device's waits for the host fall inside it."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def profile_pair(torch, label, fn_graph, fn_eager, inputs, token):
+    """One eager call and one replay of the same step, each on its own
+    copy of ``inputs`` (the state, then the rows of a wave), as
+    ``fn(inputs[0], token, *inputs[1:])``. The graph is captured (and
+    replayed once) on its copy before the profiled replay. The profiler
+    slows a replay's thousands of traced kernels, so each record also
+    holds the call's unprofiled time (:func:`event_ms`) and the idle share
+    that time gives with the profiled busy time."""
+    from repro_torch.runtime.graphs import clone_tree
+    eager_in, graph_in = clone_tree(inputs), clone_tree(inputs)
+    fn_graph(graph_in[0], token, *graph_in[1:])
+    batch = int(token.shape[0])
+    out = []
+    for name, fn, args in (("eager", fn_eager, eager_in),
+                           ("replayed", fn_graph, graph_in)):
+        def run(fn=fn, args=args):
+            fn(args[0], token, *args[1:])
+        rec = profile_call(torch, f"{label}, {name}", run, batch)
+        rec["unprofiled_ms"] = event_ms(torch, run)
+        rec["unprofiled_idle_share"] = (1.0 - rec["device_busy_ms"]
+                                        / rec["unprofiled_ms"])
+        emit(dict(phase="profile_unprofiled", step=rec["step"],
+                  ms=rec["unprofiled_ms"],
+                  idle_share=rec["unprofiled_idle_share"]))
+        out.append(rec)
     return out
 
 
@@ -755,6 +886,138 @@ def q8_reduced_check(torch, np, configs, model, sd, qkv, dev="cuda"):
     return out
 
 
+def main_path(torch, np, sa, launch_serve, cfg, params, card):
+    """The serving main path at full width, as captured graphs and eagerly
+    in one call: ``fused`` and ``fused_q8`` served both ways and held
+    bitwise equal (token streams, logprobs, final wave buffer and sampler
+    rows); the prefill graph held bitwise against one eager prompt and
+    timed against it; the exact step and the fused wave profiled eager and
+    replayed; one wave from the final state compares the kernels; the 4
+    requests served once with ``dispatch`` and its greedy streams compared
+    with ``fused``'s. Returns (records, paged launches by flavor in the
+    graph runs)."""
+    from repro_torch.runtime.graphs import leaves
+    from repro_torch.serve import make_fused_wave
+    L = cfg.n_layers
+    records, prefills, runs = [], {}, {}
+
+    def run(kernel, graphs, record=False):
+        sess, handles, rec, logits = serve_run(
+            torch, np, sa, launch_serve, cfg, params, kernel, L, prefills,
+            graphs=graphs, record=record)
+        records.append(rec)
+        # streams, not handles: a handle keeps its session (and the
+        # session's buffers and graphs) alive, which later peaks would see
+        runs[kernel, graphs] = dict(
+            rec=rec, tokens=[h.peek() for h in handles],
+            logprobs=[h.logprobs() for h in handles],
+            final=host_copy(torch, sess), logits=logits)
+        return sess, handles
+
+    def eager_backend(kernel):
+        return launch_serve.build_backend(
+            cfg, params, true_sectored=True, seq_len=2048, kernel=kernel,
+            device="cuda", graphs=False)
+
+    # fused with graphs (it computes the 4 prefills), then profiles
+    sess, handles = run("fused", True)
+    first_prompt = handles[0].request.prompt
+    backend, eager = sess.backend, eager_backend("fused")
+    _, state1 = backend.prefill_fn(np.arange(8, dtype=np.int32)[None])
+    exact = profile_pair(torch, "exact (prefill) step", backend.decode_fn,
+                         eager.decode_fn, (state1,),
+                         torch.zeros((1, 1), dtype=torch.int32,
+                                     device="cuda"))
+    token = torch.tensor([[h.peek()[-1]] for h in handles],
+                         dtype=torch.int32, device="cuda")
+    waves = profile_pair(
+        torch, "fused sectored wave",
+        make_fused_wave(backend.sectored_fn_for(None)),
+        make_fused_wave(eager.sectored_fn_for(None)),
+        (sess.batched, sess._sampler_rows), token)
+    records += [*exact, *waves]
+    for wave in waves:
+        if (wave["sectored_attention_launches"] != L
+                or not wave["sectored_attention_ms"] > 0):
+            fail(f"the profiled {wave['step']} ran {PAGED_KERNEL} "
+                 f"{wave['sectored_attention_launches']} times in "
+                 f"{wave['sectored_attention_ms']} ms; want one launch per "
+                 f"layer ({L}) and a non-zero time")
+    del sess, handles, backend, state1, token
+    torch.cuda.empty_cache()
+
+    # the eager yardstick of prefill: the first prompt, held bitwise
+    prompt = np.asarray(first_prompt, np.int32)[None]
+    graph_logits, graph_state = prefills[prompt.tobytes()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = eager.prefill_fn(prompt)
+    torch.cuda.synchronize()
+    eager_prefill_s = time.perf_counter() - t0
+    prefill_same = bool(torch.equal(logits, graph_logits)) and all(
+        torch.equal(a, b) for a, b in zip(leaves(state), leaves(graph_state)))
+    del eager, logits, state, graph_logits, graph_state
+    torch.cuda.empty_cache()
+
+    # fused eager (logits kept for the dispatch comparison), one-wave check
+    sess, handles = run("fused", False, record=True)
+    backends = {k: eager_backend(k) for k in ("dispatch", "fused",
+                                               "fused_q8")}
+    records.append(one_wave_check(
+        torch, sess, handles,
+        {k: b.sectored_fn_for(None) for k, b in backends.items()}))
+    del sess, handles, backends
+    torch.cuda.empty_cache()
+    for graphs in (True, False):
+        run("fused_q8", graphs)
+        torch.cuda.empty_cache()
+    run("dispatch", False, record=True)
+    torch.cuda.empty_cache()
+
+    fused = runs["fused", False]
+    dispatch = runs["dispatch", False]
+    streams = stream_divergence(fused, dispatch)
+    records.append(dict(phase="fused_vs_dispatch_streams",
+                        agree=all(r["agree"] for r in streams),
+                        requests=streams, logit_tolerance=LOGIT_TOL))
+    emit(records[-1])
+
+    same = {k: same_results(torch, runs[k, True], runs[k, False])
+            for k in ("fused", "fused_q8")}
+    graph_run = runs["fused", True]["rec"]
+    summary = dict(phase="graphs_vs_eager", card=card, bitwise=same,
+                   prefill_bitwise=prefill_same,
+                   prefill_one_prompt_s=dict(
+                       graph=graph_run["prefill_s_by_prompt"][0],
+                       eager=eager_prefill_s),
+                   prefill_4_prompts_graph_s=graph_run["prefill_s"],
+                   idle_share={p["step"]: p["idle_share"]
+                               for p in (*exact, *waves)},
+                   unprofiled_idle_share={
+                       p["step"]: p["unprofiled_idle_share"]
+                       for p in (*exact, *waves)},
+                   device_launches={p["step"]: p["device_launches"]
+                                    for p in (*exact, *waves)})
+    for k in ("fused", "fused_q8"):
+        for graphs, name in ((True, "graph"), (False, "eager")):
+            rec = runs[k, graphs]["rec"]
+            summary[f"{k}_{name}"] = dict(
+                ms_per_wave=rec["ms_per_wave"],
+                later_waves_median_ms=rec["later_waves_median_ms"],
+                decode_tokens_per_s=rec["decode_tokens_per_s"],
+                peak_mem_gb=rec["peak_mem_gb"])
+    records.append(summary)
+    emit(summary)
+    if not prefill_same:
+        fail("the prefill graph is not bitwise the eager prefill")
+    for k, flags in same.items():
+        if not all(flags.values()):
+            fail(f"{k}: graph and eager runs differ: {flags}")
+    launches = {"bf16": runs["fused", True]["rec"]["launches"]["bf16"],
+                "int8": runs["fused_q8", True]["rec"]["launches"]["int8"]}
+    return records, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -818,40 +1081,10 @@ def main(argv=None) -> int:
                             n_layers=cfg.n_layers, d_model=cfg.d_model,
                             vocab=cfg.vocab))
         emit(records[-1])
-        prefills = {}
-        sess, handles, rec = serve_run(torch, np, sa, launch_serve, cfg,
-                                       params, "fused", cfg.n_layers,
-                                       prefills)
-        records.append(rec)
-        launches["bf16"] = rec["launches"]["bf16"]
-        backend = sess.backend
-        _, state1 = backend.prefill_fn(np.arange(8, dtype=np.int32)[None])
-        records.append(profile_step(
-            torch, "exact (prefill) step", backend.decode_fn, state1,
-            torch.zeros((1, 1), dtype=torch.int32, device="cuda")))
-        token = torch.tensor([[h.peek()[-1]] for h in handles],
-                             dtype=torch.int32, device="cuda")
-        wave = profile_step(torch, "fused sectored wave",
-                            backend.sectored_fn_for(None), sess.batched,
-                            token)
-        records.append(wave)
-        if (wave["sectored_attention_launches"] != cfg.n_layers
-                or not wave["sectored_attention_ms"] > 0):
-            fail(f"the profiled fused wave ran {PAGED_KERNEL} "
-                 f"{wave['sectored_attention_launches']} times in "
-                 f"{wave['sectored_attention_ms']} ms; want one launch per "
-                 f"layer ({cfg.n_layers}) and a non-zero time")
-        del state1
-        _, _, rec = serve_run(torch, np, sa, launch_serve, cfg, params,
-                              "fused_q8", cfg.n_layers, prefills)
-        records.append(rec)
-        launches["int8"] = rec["launches"]["int8"]
-        backends = {k: launch_serve.build_backend(
-            cfg, params, true_sectored=True, seq_len=2048, kernel=k,
-            device="cuda") for k in ("dispatch", "fused", "fused_q8")}
-        fns = {k: b.sectored_fn_for(None) for k, b in backends.items()}
-        records.append(one_wave_check(torch, sess, handles, fns))
-        del sess, backend, backends, fns, params, prefills
+        path_records, launches = main_path(torch, np, sa, launch_serve, cfg,
+                                           params, card)
+        records += path_records
+        del params
         torch.cuda.empty_cache()
         records.append(q8_reduced_check(torch, np, configs, model,
                                         sectored_decode, quantized_kv))
@@ -873,6 +1106,7 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=f"sectored_attention_paged_{flavor}", route="cuda",
             source=KERNEL_SOURCE, replaces=TPU_KERNEL,
+            path="serving main path, CUDA graph replays",
             launches=launches[flavor], max_abs_err=worst[flavor],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))

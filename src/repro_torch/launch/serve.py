@@ -12,7 +12,8 @@
   (``csrc/sectored_attention_paged.cu``); ``--kv-quant`` feeds it
   per-sector int8 KV.
 
-Runs on the GPU unless ``--device cpu`` is given. Parameters are random,
+Runs on the GPU, where prefill steps and decode waves replay captured
+CUDA graphs, unless ``--device cpu`` is given. Parameters are random,
 from a seeded generator. The dense DecodeState backend (no
 ``--true-sectored``), telemetry, sampling, the page pool, the prefix
 cache, the flight recorder and the mesh are later slices of the port.
@@ -36,12 +37,14 @@ POLICIES = {"hysteresis": HysteresisPolicy, "dense": AlwaysDense,
 
 
 def build_backend(cfg, params, *, sectored=True, true_sectored=False,
-                  seq_len=256, kernel="dispatch", device=None):
+                  seq_len=256, kernel="dispatch", device=None, graphs=True):
     """The data path: a SectoredState-backed backend.
 
     ``kernel`` picks the sectored decode flavor: ``"dispatch"`` (gather +
     attend in torch), ``"fused"`` (the CUDA kernel) or ``"fused_q8"``
-    (the kernel over per-sector int8 KV).
+    (the kernel over per-sector int8 KV). On the card the steps, waves and
+    prefill replay captured CUDA graphs; ``graphs=False`` runs them
+    eagerly.
     """
     if true_sectored and (cfg.attn_free or cfg.layer_pattern):
         raise ValueError(
@@ -58,7 +61,7 @@ def build_backend(cfg, params, *, sectored=True, true_sectored=False,
             "model.prefill, a later slice of the port; pass --true-sectored")
     backend = sectored_decode.make_serving_fns(cfg, params=params,
                                                seq_len=seq_len, kernel=kernel,
-                                               device=device)
+                                               device=device, graphs=graphs)
     if not sectored:
         backend.sectored_fn = None
     return backend
@@ -76,8 +79,11 @@ def build_session(cfg, params, *, max_batch=4, sectored=True,
                   scheduler="fifo", vectorized=True, true_sectored=False,
                   seq_len=256, telemetry=False, policy="hysteresis",
                   mesh=None, page_pool=None, prefix_cache=None, obs=None,
-                  kernel="dispatch", device=None) -> ServeSession:
-    """A ServeSession over the port's backend, on ``device`` (None = GPU)."""
+                  kernel="dispatch", device=None,
+                  graphs=True) -> ServeSession:
+    """A ServeSession over the port's backend, on ``device`` (None = GPU).
+    On the GPU its waves and prefill replay captured CUDA graphs;
+    ``graphs=False`` runs them eagerly."""
     if scheduler != "fifo":
         raise NotImplementedError(
             f"scheduler {scheduler!r}: only fifo is ported yet")
@@ -87,7 +93,7 @@ def build_session(cfg, params, *, max_batch=4, sectored=True,
         raise NotImplementedError("the mesh is a later slice of the port")
     backend = build_backend(cfg, params, sectored=sectored,
                             true_sectored=true_sectored, seq_len=seq_len,
-                            kernel=kernel, device=device)
+                            kernel=kernel, device=device, graphs=graphs)
     return ServeSession(backend, max_batch=max_batch,
                         scheduler=FifoScheduler(),
                         policy=build_policy(policy), vectorized=vectorized,

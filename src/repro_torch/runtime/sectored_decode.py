@@ -23,6 +23,13 @@ Port notes:
 * the reference's one-hot KV append becomes an in-place row write
   (``models.attention.append_kv``): a state passed to a step is consumed
   by it (its K/V buffers hold the new row afterwards);
+* the step's one body is :func:`sectored_decode_step_`, which writes the
+  new lengths, table and position into the state it is given, so its
+  buffers never move and a CUDA graph can capture it; the functional
+  :func:`sectored_decode_step` runs it on a fork of the state;
+* where the reference jits (the step, the fused wave, the prefill scan),
+  the backend on the card replays captured CUDA graphs
+  (:mod:`repro_torch.runtime.graphs`); ``graphs=False`` runs eagerly;
 * ``fused_q8`` re-quantizes the whole cache on every step, as the
   reference does.
 """
@@ -36,6 +43,7 @@ import torch
 from repro_torch.kernels import backend, quantized_kv, sectored_attention
 from repro_torch.models import attention, layers, model
 from repro_torch.runtime import sector_predictor
+from repro_torch.runtime.graphs import Step, leaves
 from repro_torch.serve.backend import ServingBackend
 
 PAGE_SIZE = 128  # tokens per KV sector
@@ -72,6 +80,19 @@ class SectoredState:
             kv=attention.KVCache(k=self.kv.k.clone(), v=self.kv.v.clone(),
                                  length=self.kv.length.clone()),
             table=self.table.clone(), position=self.position.clone())
+
+    def fork(self) -> "SectoredState":
+        """A state sharing this one's K/V buffers, with its own length,
+        table and position: what a functional step writes into."""
+        return SectoredState(
+            kv=attention.KVCache(k=self.kv.k, v=self.kv.v,
+                                 length=self.kv.length.clone()),
+            table=self.table.clone(), position=self.position.clone())
+
+    def zero_(self) -> None:
+        """Back to :func:`init_state`'s values, in place."""
+        for t in leaves(self):
+            t.zero_()
 
     def zeros_batch(self, n: int) -> "SectoredState":
         """An all-zero state like this one with batch (slot) axis ``n``:
@@ -190,17 +211,18 @@ def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
     return out, new_cache, new_table
 
 
-def sectored_decode_step(params, cfg, state: SectoredState, token,
-                         k_pages: int, probe: bool = False,
-                         kernel: str = "dispatch"):
-    """Full-model one-token decode with sectored attention per layer.
+def sectored_decode_step_(params, cfg, state: SectoredState, token,
+                          k_pages: int, probe: bool = False,
+                          kernel: str = "dispatch") -> torch.Tensor:
+    """Full-model one-token decode with sectored attention per layer, in
+    place: token (B, 1) int -> logits (B, vocab).
 
-    token (B, 1) int -> (logits (B, vocab), new state). ``state`` is
-    consumed (in-place KV append); the new state shares its K/V buffers.
+    The new K/V rows, lengths, table and position are written into
+    ``state``; no buffer of it moves and nothing syncs with the host, so a
+    CUDA graph can capture the step.
     """
     model._check_supported(cfg)
     x = layers.embed(params, token)
-    lengths, tables = [], []
     for i in range(cfg.n_layers):
         lp = model.layer_params(params, i)
         cache = attention.KVCache(k=state.kv.k[i], v=state.kv.v[i],
@@ -209,17 +231,27 @@ def sectored_decode_step(params, cfg, state: SectoredState, token,
         att, cache_new, table_new = sectored_attend(
             lp["attn"], cfg, h, cache, state.table[i], k_pages, probe=probe,
             kernel=kernel)
-        lengths.append(cache_new.length)
-        tables.append(table_new)
+        state.kv.length[i].copy_(cache_new.length)
+        state.table[i].copy_(table_new)
         x = x + att
         h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
         x = x + layers.swiglu(lp["mlp"], h)
     hidden = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = model.logits_fn(params, cfg, hidden)[:, 0, :]
-    kv = attention.KVCache(k=state.kv.k, v=state.kv.v,
-                           length=torch.stack(lengths))
-    return logits, SectoredState(kv=kv, table=torch.stack(tables),
-                                 position=state.position + 1)
+    state.position.add_(1)
+    return model.logits_fn(params, cfg, hidden)[:, 0, :]
+
+
+def sectored_decode_step(params, cfg, state: SectoredState, token,
+                         k_pages: int, probe: bool = False,
+                         kernel: str = "dispatch"):
+    """:func:`sectored_decode_step_` on ``state.fork()``: token (B, 1) int
+    -> (logits (B, vocab), new state). ``state`` is consumed (in-place KV
+    append); the new state shares its K/V buffers.
+    """
+    new_state = state.fork()
+    logits = sectored_decode_step_(params, cfg, new_state, token, k_pages,
+                                   probe=probe, kernel=kernel)
+    return logits, new_state
 
 
 def or_merge_demands(stacked_state: SectoredState,
@@ -244,13 +276,18 @@ class SectoredKVBackend(ServingBackend):
     per distinct k (``sectored_fn_for``). ``kernel`` ("dispatch" | "fused"
     | "fused_q8") is how genuinely narrow steps attend; exact mode and
     prefill always run "dispatch", as in the reference.
+
+    On the card (``graphs=True``, the default) the steps, the session's
+    fused waves and the prefill step run as replays of captured CUDA
+    graphs in one memory pool, where the reference jits them;
+    ``graphs=False`` runs them eagerly. A CPU backend always runs eagerly.
     """
 
     KERNELS = KERNELS
 
     def __init__(self, cfg, params, *, seq_len: int,
                  topk_frac: float = TOPK_FRAC, min_topk: int = MIN_TOPK,
-                 kernel: str = "dispatch", device=None):
+                 kernel: str = "dispatch", device=None, graphs: bool = True):
         if kernel not in self.KERNELS:
             raise ValueError(f"kernel must be one of {self.KERNELS}; "
                              f"got {kernel!r}")
@@ -263,23 +300,28 @@ class SectoredKVBackend(ServingBackend):
         self.min_topk = min_topk
         self.kernel = kernel
         self.pages = padded_pages(seq_len)
-        self._k_cache: dict[int, object] = {}
+        self.graphs = graphs and self.device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self._k_cache: dict[int, Step] = {}
+        # batch -> (static state, captured exact step) of the prefill
+        self._prefill_graphs: dict[int, tuple] = {}
         exact_fn = self._step_for(self.pages)
         super().__init__(self._prefill, exact_fn,
                          self._step_for(self.k_for(topk_frac)),
                          or_merge_demands, vocab=cfg.vocab)
 
-    def _step_for(self, k_pages: int):
+    def _step_for(self, k_pages: int) -> Step:
         fn = self._k_cache.get(k_pages)
         if fn is None:
             cfg, params = self.cfg, self.params
             probe = self.probe_pages_for(k_pages) > 0
             kernel = self.kernel if 0 < k_pages < self.pages else "dispatch"
 
-            def fn(state, token):
-                return sectored_decode_step(params, cfg, state, token,
-                                            k_pages, probe=probe,
-                                            kernel=kernel)
+            def step_(state, token):
+                return sectored_decode_step_(params, cfg, state, token,
+                                             k_pages, probe=probe,
+                                             kernel=kernel)
+            fn = Step(step_, graphs=self.graphs, pool=self.pool)
             fn.k_pages = k_pages
             fn.kernel = kernel
             self._k_cache[k_pages] = fn
@@ -304,26 +346,46 @@ class SectoredKVBackend(ServingBackend):
 
     def _prefill(self, tokens):
         """Exact-mode prefill: the exact decode step over each prompt
-        token in turn (the reference scans the same step)."""
+        token in turn (the reference scans the same step).
+
+        With graphs, every prompt of a batch size replays one captured
+        step over one static state, zeroed first: the state's shape
+        depends on ``seq_len``, not on the prompt. Each token is a copy
+        into the static token and a replay, with no host sync between
+        tokens; the logits and state returned are copies.
+        """
         tokens = torch.as_tensor(tokens, dtype=torch.int32,
                                  device=self.device)
-        state = init_state(self.cfg, tokens.shape[0], self.seq_len,
-                           device=self.device)
-        step = self._step_for(self.pages)
+        batch = tokens.shape[0]
+        exact = self._step_for(self.pages)
+        if self.graphs:
+            if batch not in self._prefill_graphs:
+                self._prefill_graphs[batch] = (
+                    init_state(self.cfg, batch, self.seq_len,
+                               device=self.device),
+                    exact.capture(exact.step_))
+            state, step = self._prefill_graphs[batch]
+            state.zero_()
+        else:
+            state = init_state(self.cfg, batch, self.seq_len,
+                               device=self.device)
+            step = exact.step_
         logits = None
         for i in range(tokens.shape[1]):
-            logits, state = step(state, tokens[:, i:i + 1])
+            logits = step(state, tokens[:, i:i + 1])
+        if self.graphs:
+            return logits.clone(), state.clone()
         return logits, state
 
 
 def make_serving_fns(cfg, *, params, seq_len: int,
                      topk_frac: float = TOPK_FRAC, min_topk: int = MIN_TOPK,
-                     kernel: str = "dispatch",
-                     device=None) -> SectoredKVBackend:
+                     kernel: str = "dispatch", device=None,
+                     graphs: bool = True) -> SectoredKVBackend:
     """Build the SectoredState serving backend."""
     return SectoredKVBackend(cfg, params, seq_len=seq_len,
                              topk_frac=topk_frac, min_topk=min_topk,
-                             kernel=kernel, device=device)
+                             kernel=kernel, device=device, graphs=graphs)
 
 
 def bytes_saved_fraction(seq_len: int, topk_frac: float = TOPK_FRAC) -> float:

@@ -81,25 +81,36 @@ class SamplerRows:
                              device=device),
         )
 
-    def advance(self, hold=None) -> "SamplerRows":
-        """Counters after one wave; ``hold`` (S,) bool masks slots whose
-        counter must not move (the stop guard freezes token and counter
-        together)."""
-        if hold is None:
-            return dataclasses.replace(self, pos=self.pos + 1)
-        step = torch.where(hold, 0, 1).to(self.pos.dtype)
-        return dataclasses.replace(self, pos=self.pos + step)
+    def clone(self) -> "SamplerRows":
+        return SamplerRows(**{f.name: getattr(self, f.name).clone()
+                              for f in dataclasses.fields(self)})
 
-    def scatter(self, slots, rows: "SamplerRows") -> "SamplerRows":
-        """These rows with ``rows`` written at ``slots`` (admission)."""
+    def advance_(self, hold=None) -> "SamplerRows":
+        """Counters after one wave, in place; ``hold`` (S,) bool masks
+        slots whose counter must not move (the stop guard freezes token
+        and counter together)."""
+        if hold is None:
+            self.pos.add_(1)
+        else:
+            self.pos.add_(torch.where(hold, 0, 1).to(self.pos.dtype))
+        return self
+
+    def advance(self, hold=None) -> "SamplerRows":
+        """:meth:`advance_` on a copy."""
+        return self.clone().advance_(hold)
+
+    def scatter_(self, slots, rows: "SamplerRows") -> "SamplerRows":
+        """Write ``rows`` at ``slots``, in place (admission)."""
         idx = torch.as_tensor(list(slots), dtype=torch.long,
                               device=self.pos.device)
-        fields = {}
         for f in dataclasses.fields(self):
-            big = getattr(self, f.name).clone()
+            big = getattr(self, f.name)
             big[idx] = getattr(rows, f.name).to(big.device)
-            fields[f.name] = big
-        return SamplerRows(**fields)
+        return self
+
+    def scatter(self, slots, rows: "SamplerRows") -> "SamplerRows":
+        """:meth:`scatter_` on a copy."""
+        return self.clone().scatter_(slots, rows)
 
 
 def greedy_select(logits: torch.Tensor) -> torch.Tensor:

@@ -4,20 +4,24 @@ JAX package's ``serve/backend.py``).
 A backend bundles the data path: ``prefill_fn``, dense ``decode_fn``,
 ``sectored_fn`` and ``demand_merge_fn``. :func:`fused_select_step`
 composes a decode step with on-device token selection, the stop guard and
-the token's logprob; :func:`make_fused_wave` is the wave the session runs.
-The reference vmaps a per-slot step over stacked slot states; here the
-slot axis IS the batch axis of one state, so the wave is one batched call.
+the token's logprob; :func:`make_fused_wave` is the wave the session runs,
+which writes the new state and sampler rows in place. The reference vmaps
+a per-slot step over stacked slot states; here the slot axis IS the batch
+axis of one state, so the wave is one batched call. Where the reference
+jits the wave, a step that offers ``capture`` (a ``SectoredKVBackend``
+step on the card) makes it one captured CUDA graph.
 
-Leaf-level: imports nothing from ``repro_torch.runtime``.
+Leaf-level: imports nothing from ``repro_torch.runtime`` but its leaf
+module ``graphs``.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable
 
 import torch
 
+from repro_torch.runtime.graphs import copy_tree_
 from repro_torch.sample import SamplerRows, greedy_select, token_logprob
 
 
@@ -56,34 +60,66 @@ class ServingBackend:
                 f"merge={self.demand_merge_fn is not None})")
 
 
-def fused_select_step(fn: Callable) -> Callable:
-    """Decode step with greedy token selection fused in.
-
-    Wraps ``fn(state, token) -> (logits, new_state)`` into
-    ``fused(state, token, rows) -> (tok, new_state, advanced_rows)``;
-    ``token`` and ``tok`` are ``(slots, 1)`` int32.
+def _select_(logits, token: torch.Tensor, rows: SamplerRows):
+    """Greedy selection with the stop guard, advancing ``rows`` and
+    writing each token's logprob into ``rows.logp`` in place; returns the
+    ``(slots, 1)`` int32 tokens.
 
     Stop guard (the EOS contract): a slot whose INPUT token is in its
     stop set re-emits that token, keeps its RNG counter and reports
     logprob 0, so a finished slot can never emit past EOS.
     """
+    tok = greedy_select(logits)
+    last = token.reshape(token.shape[0], -1)[:, -1].to(torch.int32)
+    stopped = torch.any(last[:, None] == rows.stop, dim=-1)
+    tok = torch.where(stopped, last, tok)
+    rows.logp.copy_(torch.where(stopped, 0.0, token_logprob(logits, tok)))
+    rows.advance_(hold=stopped)
+    return tok[:, None]
+
+
+def fused_select_step(fn: Callable) -> Callable:
+    """Decode step with greedy token selection fused in.
+
+    Wraps ``fn(state, token) -> (logits, new_state)`` into
+    ``fused(state, token, rows) -> (tok, new_state, advanced_rows)``;
+    ``token`` and ``tok`` are ``(slots, 1)`` int32. ``rows`` is left as
+    it was (see :func:`_select_` for the stop guard).
+    """
     def fused(state, token: torch.Tensor, rows: SamplerRows):
         logits, new_state = fn(state, token)
-        tok = greedy_select(logits)
-        last = token.reshape(token.shape[0], -1)[:, -1].to(torch.int32)
-        stopped = torch.any(last[:, None] == rows.stop, dim=-1)
-        tok = torch.where(stopped, last, tok)
-        lp = torch.where(stopped, 0.0, token_logprob(logits, tok))
-        advanced = rows.advance(hold=stopped)
-        return (tok[:, None], new_state,
-                dataclasses.replace(advanced, logp=lp))
+        rows = rows.clone()
+        return _select_(logits, token, rows), new_state, rows
 
     return fused
 
 
+def _in_place(fn: Callable) -> Callable:
+    """``step_(state, token) -> logits`` over a functional step: the new
+    state is copied into ``state``."""
+    def step_(state, token):
+        logits, new_state = fn(state, token)
+        copy_tree_(state, new_state)
+        return logits
+    return step_
+
+
 def make_fused_wave(fn: Callable) -> Callable:
-    """The session's wave: :func:`fused_select_step` over all slots at
-    once, advertising ``returns_tokens``."""
-    wave = fused_select_step(fn)
-    wave.returns_tokens = True
-    return wave
+    """The session's wave ``wave(state, token, rows) -> tok``: the decode
+    step ``fn``, greedy selection, the stop guard and the logprob over all
+    slots at once, writing the new state and advanced rows (with the
+    logprobs) into ``state`` and ``rows``. ``tok`` is ``(slots, 1)``
+    int32.
+
+    A step with an in-place body (``fn.step_``) runs it directly, and one
+    that offers ``capture`` makes the whole wave one captured CUDA graph
+    bound to the state and rows of its first call; any other functional
+    step runs eagerly with its new state copied back.
+    """
+    step_ = getattr(fn, "step_", None) or _in_place(fn)
+
+    def wave(state, token: torch.Tensor, rows: SamplerRows):
+        return _select_(step_(state, token), token, rows)
+
+    capture = getattr(fn, "capture", None)
+    return capture(wave) if capture is not None else wave

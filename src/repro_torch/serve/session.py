@@ -15,6 +15,10 @@ selects tokens greedily on the device, applies the stop guard and
 returns each token's logprob. The EOS contract (``Request.stop_tokens``)
 is enforced on the host and inside the wave, as in the reference.
 
+The wave buffer (``batched``) and the sampler rows are allocated once and
+only ever written in place (admission, the demand merge, the wave), so on
+the card a wave is the replay of a CUDA graph captured on them.
+
 This slice serves greedy requests through the FIFO scheduler. The
 reference's page pool, prefix cache, flight recorder, meter, mesh,
 pre-fused (``fuse_wave=False``) and looped (``vectorized=False``) waves
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend as kbackend
+from repro_torch.runtime.graphs import copy_tree_
 from repro_torch.sample import MAX_STOP_TOKENS, SamplerRows, SamplerSpec
 from repro_torch.sample import token_logprob
 from repro_torch.serve.backend import make_fused_wave
@@ -260,7 +265,7 @@ class ServeSession:
                                       [len(handle._tokens) + 1],
                                       [handle.request.stop_tokens],
                                       device=self.device)
-        self._sampler_rows = self._sampler_rows.scatter([slot], rows)
+        self._sampler_rows.scatter_([slot], rows)
         self._emit_first(slot, handle, first_token)
 
     def _emit_first(self, slot: int, handle: StreamHandle,
@@ -304,7 +309,8 @@ class ServeSession:
         gids = self._group_ids()
         n_groups = len({int(gids[s]) for s in active})
         self.stats["merged_slots"] += len(active) - n_groups
-        self.batched = self.backend.merge_demands(self.batched, gids)
+        copy_tree_(self.batched, self.backend.merge_demands(self.batched,
+                                                            gids))
 
     # -- wave execution ---------------------------------------------------
 
@@ -336,8 +342,7 @@ class ServeSession:
         for s in active:
             desired[s, 0] = self.slots[s].last_token
         tok_in = torch.as_tensor(desired, device=self.device)
-        out, self.batched, self._sampler_rows = self._wave_for(fn)(
-            self.batched, tok_in, self._sampler_rows)
+        out = self._wave_for(fn)(self.batched, tok_in, self._sampler_rows)
         next_tok = out.cpu().numpy()[:, 0]
         logps = self._sampler_rows.logp.cpu().numpy()
         self.scheduler.overlap(self)

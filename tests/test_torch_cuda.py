@@ -1,5 +1,6 @@
 """repro_torch on the GPU: the CUDA kernel vs its plain version on the
-same CUDA tensors, and the fused decode step vs the dispatch step.
+same CUDA tensors, the fused decode step vs the dispatch step, and the
+serving path's captured CUDA graphs vs its eager steps (bitwise).
 
 Every test here needs a CUDA GPU and skips without one. This file imports
 neither JAX nor the JAX package, so it runs on a machine with only
@@ -13,7 +14,9 @@ from repro_torch import configs
 from repro_torch.kernels import (flash_attention, ops, quantized_kv,
                                  sectored_attention, vbl_gather)
 from repro_torch.models import model
-from repro_torch.runtime import sectored_decode
+from repro_torch.runtime import graphs, sectored_decode
+from repro_torch.sample import SamplerRows
+from repro_torch.serve import make_fused_wave
 
 pytestmark = pytest.mark.cuda
 
@@ -372,3 +375,133 @@ def test_head_major_misaligned_cache(gpu, dtype):
     out = ops.sectored_attention(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+
+
+# -- captured CUDA graphs of the serving path ---------------------------------
+
+GRAPH_CFG = dict(n_layers=2, d_model=256, n_heads=8, n_kv_heads=2, d_ff=512,
+                 vocab=512, head_dim=128)
+
+
+def _graph_backends(gpu, kernel):
+    """(cfg, backend with graphs, eager backend) over the same weights."""
+    cfg = configs.get("yi-6b").reduced(**GRAPH_CFG)
+    params = model.init_params(cfg, seed=0, device=gpu)
+    kw = dict(params=params, seq_len=768, min_topk=1, kernel=kernel,
+              device=gpu)
+    return (cfg, sectored_decode.make_serving_fns(cfg, **kw),
+            sectored_decode.make_serving_fns(cfg, graphs=False, **kw))
+
+
+def _equal_trees(a, b):
+    return all(torch.equal(x, y) for x, y in zip(
+        graphs.leaves(a), graphs.leaves(b), strict=True))
+
+
+def _wave_state(gpu, cfg, backend, lengths=(126, 127, 300, 383)):
+    """A wave buffer of 4 slots prefilled to ``lengths`` (two of them two
+    and one token below a page edge), and the tokens."""
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(4)
+    state = None
+    for slot, n in enumerate(lengths):
+        prompt = torch.randint(0, cfg.vocab, (1, n), generator=gen,
+                               device=gpu, dtype=torch.int32)
+        _, row = backend.prefill_fn(prompt)
+        if state is None:
+            state = row.zeros_batch(len(lengths))
+        state.set_row(slot, row)
+    token = torch.randint(0, cfg.vocab, (len(lengths), 1), generator=gen,
+                          device=gpu, dtype=torch.int32)
+    return state, token
+
+
+@pytest.mark.parametrize("mode", ["exact", "fused", "fused_q8"])
+def test_replay_bitwise_eager(gpu, mode):
+    """Steps and fused waves replayed from captured graphs equal the eager
+    ones bitwise (logits, K/V, lengths, table, position, tokens, sampler
+    rows) over 4 waves that cross a page boundary; the paged kernel's
+    launches are counted through the replays."""
+    cfg, bg, be = _graph_backends(gpu, "fused" if mode == "exact" else mode)
+    state, token = _wave_state(gpu, cfg, be)
+    pick = (lambda b: b.decode_fn) if mode == "exact" else (
+        lambda b: b.sectored_fn_for(None))
+    sg, se = state.clone(), state.clone()
+    tok = token
+    sectored_attention.reset_launches()
+    for _ in range(4):
+        lg, sg_out = pick(bg)(sg, tok)
+        le, se = pick(be)(se, tok)
+        assert sg_out is sg
+        assert torch.equal(lg, le) and _equal_trees(sg, se)
+        tok = torch.argmax(le.float(), -1, keepdim=True).to(torch.int32)
+    flavor = {"fused": "bf16", "fused_q8": "int8"}.get(mode)
+    if flavor is not None:  # 4 replays + 4 eager steps, one launch a layer
+        assert sectored_attention.launches[flavor] == 8 * cfg.n_layers
+    assert int(sg.kv.length.min()) > 128  # crossed the first page edge
+
+    wg, we = make_fused_wave(pick(bg)), make_fused_wave(pick(be))
+    assert isinstance(wg, graphs.CapturedStep)
+    (sg, rg), (se, re_) = [(state.clone(), SamplerRows.init(4, device=gpu))
+                           for _ in range(2)]
+    tg = te = token
+    for _ in range(4):
+        tg = wg(sg, tg, rg).clone()
+        te = we(se, te, re_)
+        assert torch.equal(tg, te)
+        assert _equal_trees((sg, rg), (se, re_))
+
+
+def test_prefill_graph_bitwise_eager(gpu):
+    """Prompts of every length replay one batch-1 graph over one static
+    state, and equal the eager token loop bitwise."""
+    cfg, bg, be = _graph_backends(gpu, "fused")
+    gen = torch.Generator(device=gpu)
+    gen.manual_seed(5)
+    for n in (130, 40, 1):
+        prompt = torch.randint(0, cfg.vocab, (1, n), generator=gen,
+                               device=gpu, dtype=torch.int32)
+        lg, sg = bg.prefill_fn(prompt)
+        le, se = be.prefill_fn(prompt)
+        assert torch.equal(lg, le) and _equal_trees(sg, se)
+    assert list(bg._prefill_graphs) == [1]
+
+
+def test_capture_leaves_the_live_state(gpu):
+    """Warm-up and capture write nothing the caller holds: the warm-up runs
+    on a scratch copy and a capture runs no kernel. The first replay then
+    takes the state exactly one step on."""
+    cfg, bg, be = _graph_backends(gpu, "fused")
+    state, token = _wave_state(gpu, cfg, be)
+    before = state.clone()
+    step = graphs.CapturedStep(bg.sectored_fn_for(None).step_, pool=bg.pool)
+    sectored_attention.reset_launches()
+    step._capture(state, token, ())
+    torch.cuda.synchronize()
+    assert _equal_trees(state, before)
+    assert sectored_attention.launches["bf16"] == 0  # neither is counted
+    assert step.warmup_launches[0]["bf16"] == cfg.n_layers
+    assert step.launches[0]["bf16"] == cfg.n_layers
+    logits = step(state, token)
+    want_logits, want = be.sectored_fn_for(None)(before, token)
+    assert torch.equal(logits, want_logits) and _equal_trees(state, want)
+    assert sectored_attention.launches["bf16"] == 2 * cfg.n_layers
+
+
+def test_uncapturable_step_raises(gpu):
+    """A body that syncs with the host cannot be captured: the call raises,
+    every time, and nothing runs it eagerly in the graph's place."""
+    def body(state, token):
+        state.add_(token * int(state.sum().item()))
+        return state
+
+    state = torch.ones(4, device=gpu)
+    step = graphs.CapturedStep(body)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            step(state, torch.ones(4, device=gpu))
+        torch.cuda.synchronize()
+        assert step.graph is None
+        assert torch.equal(state, torch.ones(4, device=gpu))
+    assert torch.equal(torch.ones(4, device=gpu) * 2,
+                       torch.full((4,), 2.0, device=gpu))  # card still fine
