@@ -27,9 +27,11 @@ one JSON line:
    seeded generator) with the fused kernel and with int8 KV
    (``fused_q8``), each twice in one call: its prefill steps and decode
    waves as replays of captured CUDA graphs (the default on the card),
-   then eagerly (``graphs=False``), reusing the first run's prefill
-   states (prefill does not depend on the kernel). Graph and eager must
-   give bitwise equal token streams, logprobs and final wave buffers; the
+   metered (``build_session(telemetry=True)``, the CLI's
+   ``--telemetry``), then eagerly (``graphs=False``) and unmetered,
+   reusing the first run's prefill states (prefill does not depend on the
+   kernel). Graph and eager must give bitwise equal token streams,
+   logprobs and final wave buffers, so metering changes none of them; the
    prefill graph is held bitwise against, and timed beside, one prompt
    prefilled eagerly. Each run reports ms per wave, tokens/s, prefill s
    and peak memory; launch counters, which replays advance by the
@@ -40,11 +42,26 @@ one JSON line:
    time); one wave from the final state compares fused with dispatch (and
    reports fused_q8's logprob error); the 4 requests served with
    ``dispatch`` give the greedy streams the fused ones are compared with
-   (the first divergence, if any, with its logit gaps); then the
+   (the first divergence, if any, with its logit gaps); two more metered
+   graph runs over the ``fused`` backend: coarse-grained DRAM
+   (``sectored_hw=False``) and ``AdaptiveSectorPolicy`` with the
+   reference ``serve_latency`` bench's settings; then the ``metering``
+   line: for ``fused``, ``fused_q8``, coarse and adaptive, J/token,
+   modeled DRAM ns/token (decode and prefill ``dram_ns``), sector
+   coverage, the attention-mass EMA, the double-entry audit and the
+   meter's host ms per wave (its wave descriptor with the table copy,
+   and ``record_wave``), and the adaptive leg's per-wave ``topk_frac``
+   and graph captures. Each metered run must equal, in ``energy_j``,
+   ``dram_ns``, ``prefill_dram_ns`` and ``tokens``, a fresh meter driven
+   on the host with the schedule it ran (:func:`schedule_meter`); the
+   audit must stay within 1e-9; J/token and ns/token must order
+   fused_q8 < fused < coarse. Joules and ``dram_ns`` are outputs of the
+   DDR4 model on host counters, not measurements of the card. Then the
    reference's int8 gate (fused_q8 vs dispatch logprob error
    <= LOGPROB_TOL, teacher-forced) on the reduced config it is defined
    for;
-4. cli — ``repro_torch.launch.serve.main`` once (reduced config).
+4. cli — ``repro_torch.launch.serve.main`` once (reduced config,
+   ``--telemetry``: it prints the energy table).
 
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -99,6 +116,16 @@ TABLE_TOL = 1e-3  # SHT entries are EMA masses in [0, 1]
 # one bf16 ulp (2**-8 relative) apart. VBL gather moves bits: bitwise.
 HEAD_MAJOR_TOL = 1e-5
 FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
+
+# the main path's schedule: 4 prompts, 16 tokens each (the prefill's and
+# 15 waves'), all 4 admitted before the first wave
+PROMPT_LENGTHS = (768, 770, 790, 800)
+NEW_TOKENS = 16
+WAVES = NEW_TOKENS - 1
+# the adaptive leg: the reference serve_latency bench's settings
+ADAPTIVE = dict(target_coverage=0.5, deadband=0.15, frac_step=1 / 6,
+                min_frac=1 / 6, init_frac=2 / 6, max_frac=0.5)
+AUDIT_TOL = 1e-9  # the reference's double-entry audit tolerance
 
 
 def fail(msg: str):
@@ -572,12 +599,132 @@ def ops_times(torch, ops, sa, vg, fa, hm, vbl_in, flash_in):
 # -- phase 3: the main path ----------------------------------------------------
 
 
+def schedule_meter(meters, geometry, prompt_lengths, k_per_wave, *,
+                   sectored_hw=True):
+    """A fresh ``meters.WaveMeter`` driven on the host with the schedule a
+    FIFO session runs when every request is admitted before the first wave
+    and none stops early: each prompt's prefill in request order, then one
+    wave per entry of ``k_per_wave`` (the pages a slot fetches, probe
+    included; None for a dense wave), request r in slot r at position
+    ``len(prompt_r) + w`` in wave w."""
+    m = meters.WaveMeter(geometry, sectored_hw=sectored_hw)
+    for rid, n in enumerate(prompt_lengths):
+        m.record_prefill(rid, n)
+    for w, k in enumerate(k_per_wave):
+        m.record_wave(sectored=k is not None, k_pages=k,
+                      slots=[(rid, rid, n + w)
+                             for rid, n in enumerate(prompt_lengths)])
+    return m
+
+
+class LoggedPolicy:
+    """Delegates to a policy and keeps each wave's ``topk_frac``."""
+
+    def __init__(self, policy):
+        self.policy, self.fracs = policy, []
+
+    def decide(self, occupancy, stats):
+        decision = self.policy.decide(occupancy, stats)
+        self.fracs.append(decision.topk_frac)
+        return decision
+
+
+def timed_calls(obj, name, seconds):
+    """Wrap the bound method ``obj.name`` so each call's host time is
+    appended to ``seconds``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+    setattr(obj, name, timed)
+
+
+def metered_session(launch_serve, cfg, params, kernel, metered, *, seq_len,
+                    dev, graphs):
+    """The 4-slot session of the main path. ``metered`` None serves
+    unmetered; "sectored" meters through ``build_session(telemetry=True)``
+    (the CLI's ``--telemetry``); "coarse" meters the same backend as
+    coarse-grained DRAM (``sectored_hw=False``); "adaptive" runs
+    ``AdaptiveSectorPolicy`` over the meter's recorder."""
+    from repro_torch.serve import (AdaptiveSectorPolicy, AlwaysSectored,
+                                   ServeSession)
+    from repro_torch.telemetry import MeteredBackend
+    if metered in (None, "sectored"):
+        sess = launch_serve.build_session(
+            cfg, params, true_sectored=True, kernel=kernel,
+            policy="sectored", seq_len=seq_len, max_batch=4, device=dev,
+            graphs=graphs, telemetry=metered is not None)
+    else:
+        backend = MeteredBackend(
+            launch_serve.build_backend(cfg, params, true_sectored=True,
+                                       seq_len=seq_len, kernel=kernel,
+                                       device=dev, graphs=graphs),
+            sectored_hw=metered != "coarse")
+        policy = (AdaptiveSectorPolicy(backend.meter.recorder, **ADAPTIVE)
+                  if metered == "adaptive" else AlwaysSectored())
+        sess = ServeSession(backend, max_batch=4, policy=policy)
+    sess.policy = LoggedPolicy(sess.policy)
+    return sess
+
+
+def meter_record(np, meters, sess, backend, lengths, host_s, n_waves):
+    """What the session's meter reports, checked against a fresh meter
+    driven on the host with the schedule the session ran (each wave's
+    page budget from the policy's logged fraction, plus the probe page):
+    ``energy_j``, ``dram_ns``, ``prefill_dram_ns`` and ``tokens`` must be
+    equal, and the audit within ``AUDIT_TOL``. These are outputs of the
+    DDR4 model on host counters, not measurements of the card."""
+    report = sess.meter.report()
+    ks = [backend.k_for(f) + backend.probe_pages_for(backend.k_for(f))
+          for f in sess.policy.fracs]
+    host = schedule_meter(meters, backend.kv_geometry(), lengths, ks,
+                          sectored_hw=sess.meter.sectored_hw).report()
+    tokens = report["tokens"]
+    total_ns = report["dram_ns"] + report["prefill_dram_ns"]
+    out = dict(
+        sectored_hw=sess.meter.sectored_hw,
+        kv_word_fraction=sess.meter.geometry.kv_word_fraction,
+        energy_j=report["energy_j"], tokens=tokens,
+        j_per_token=report["energy_j"] / tokens,
+        uj_per_token=report["energy_j"] / tokens * 1e6,
+        ns_per_token=total_ns / tokens,
+        decode_dram_ns=report["dram_ns"],
+        prefill_dram_ns=report["prefill_dram_ns"],
+        sector_coverage=report["sector_coverage"],
+        attn_mass_ema=report["ema"].get("attn_mass"),
+        audit_checks=report["audit_checks"],
+        audit_max_rel_err=report["audit_max_rel_err"],
+        meter_host_ms_per_wave=sum(host_s) / n_waves * 1e3,
+        topk_frac_per_wave=list(sess.policy.fracs),
+        k_pages_per_wave=ks,
+        host_replay_equal={k: report[k] == host[k] for k in
+                           ("energy_j", "dram_ns", "prefill_dram_ns",
+                            "tokens")})
+    if not all(out["host_replay_equal"].values()):
+        fail(f"the session's meter differs from the host replay of its "
+             f"schedule: {out['host_replay_equal']}; session "
+             f"{[report[k] for k in out['host_replay_equal']]}, host "
+             f"{[host[k] for k in out['host_replay_equal']]}")
+    if not (report["audit_checks"] > 0
+            and report["audit_max_rel_err"] <= AUDIT_TOL):
+        fail(f"energy audit: {report['audit_checks']} checks, max rel err "
+             f"{report['audit_max_rel_err']} (tolerance {AUDIT_TOL})")
+    if not all(np.isfinite([out["j_per_token"], out["ns_per_token"]])):
+        fail(f"non-finite metered figures: {out}")
+    return out
+
+
 def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
               prefills, *, graphs=True, record=False, dev="cuda",
-              lengths=(768, 770, 790, 800), seq_len=2048):
-    """Serve the 4 requests through ``build_session`` with ``kernel``, its
-    waves and prefill as replays of captured CUDA graphs or, with
-    ``graphs=False``, eagerly.
+              lengths=PROMPT_LENGTHS, seq_len=2048, metered=None):
+    """Serve the 4 requests with ``kernel``, their waves and prefill as
+    replays of captured CUDA graphs or, with ``graphs=False``, eagerly,
+    through :func:`metered_session` (``metered``: None, "sectored",
+    "coarse" or "adaptive").
 
     ``prefills`` (prompt bytes -> (logits, state)) carries prefill results
     from one run to the next: prefill runs the exact dispatch step
@@ -585,17 +732,24 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
     bit instead of spending the time limit on recomputing them (the eager
     prefill is timed and held against them once, in :func:`main_path`).
     ``record`` (eager runs only) keeps every wave's logits by request.
+    A metered run times the meter's host work per wave (the wave
+    descriptor with its table copy, and ``record_wave``) and holds its
+    report to the host replay of its schedule (:func:`meter_record`).
     Returns (session, handles, record of the run, logits by request).
     """
     from repro_torch.serve import Request
+    from repro_torch.telemetry import meters
 
     def sync():
         if dev == "cuda":
             torch.cuda.synchronize()
-    sess = launch_serve.build_session(
-        cfg, params, true_sectored=True, kernel=kernel, policy="sectored",
-        seq_len=seq_len, max_batch=4, device=dev, graphs=graphs)
-    backend = sess.backend
+    sess = metered_session(launch_serve, cfg, params, kernel, metered,
+                           seq_len=seq_len, dev=dev, graphs=graphs)
+    backend = getattr(sess.backend, "inner", sess.backend)
+    meter_s = []
+    if sess.meter is not None:
+        timed_calls(sess, "_meter_wave_info", meter_s)
+        timed_calls(sess.meter, "record_wave", meter_s)
     prefill = backend.prefill_fn
     prefill_s = []
     reused = [0]
@@ -619,7 +773,7 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
     lengths = list(lengths)
     handles = [sess.submit(Request(
         rid, rng.integers(0, cfg.vocab, n).astype(np.int32),
-        max_new_tokens=16)) for rid, n in enumerate(lengths)]
+        max_new_tokens=NEW_TOKENS)) for rid, n in enumerate(lengths)]
     sync()
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -644,7 +798,8 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
         for n_flavor, n in wave.warmup_launches[0].items():
             warmup[n_flavor] = warmup.get(n_flavor, 0) + n
     out = dict(phase="main_path", kernel=kernel, graphs=backend.graphs,
-               n_layers=n_layers, completed=stats["completed"],
+               metered=metered, n_layers=n_layers,
+               completed=stats["completed"],
                waves=stats["waves"], sectored_waves=stats["sectored_waves"],
                decode_steps=stats["decode_steps"], launches=launches,
                warmup_launches=warmup,
@@ -660,6 +815,9 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
                             if dev == "cuda" else None),
                k_pages=k, probe_pages=backend.probe_pages_for(k),
                padded_pages=backend.pages, prompt_lengths=lengths)
+    if sess.meter is not None:
+        out["meter"] = meter_record(np, meters, sess, backend, lengths,
+                                    meter_s, stats["waves"])
     emit(out)
     if not all(h.done for h in handles) or stats["completed"] != 4:
         fail(f"{kernel}: not every request completed: {stats}")
@@ -671,7 +829,7 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
         fail(f"{kernel}: launches {launches}, want {want} (n_layers x "
              f"sectored waves of the kernel's flavor)")
     for h in handles:
-        if len(h.peek()) != 16:
+        if len(h.peek()) != NEW_TOKENS:
             fail(f"{kernel}: request {h.rid} emitted {len(h.peek())} tokens")
     return sess, handles, out, logits_by_rid
 
@@ -886,29 +1044,75 @@ def q8_reduced_check(torch, np, configs, model, sd, qkv, dev="cuda"):
     return out
 
 
+METER_KEYS = ("j_per_token", "uj_per_token", "ns_per_token", "energy_j",
+              "tokens", "decode_dram_ns", "prefill_dram_ns",
+              "sector_coverage", "attn_mass_ema", "audit_checks",
+              "audit_max_rel_err", "meter_host_ms_per_wave",
+              "kv_word_fraction", "sectored_hw")
+
+
+def metering_summary(runs, card):
+    """The metered figures of the four graph legs side by side: ``fused``,
+    ``fused_q8`` (int8 words), coarse-grained DRAM over the fused backend
+    and the adaptive policy over it (with its per-wave ``topk_frac`` and
+    the graphs its widths captured). Fails unless J/token and ns/token
+    order quantized < fused < coarse, and unless the coarse leg, which
+    differs from ``fused`` only in the meter, served the same streams."""
+    legs = {name: runs[key]["rec"] for name, key in (
+        ("fused", ("fused", True)), ("fused_q8", ("fused_q8", True)),
+        ("coarse", ("coarse", True)), ("adaptive", ("adaptive", True)))}
+    out = dict(phase="metering", card=card,
+               note="joules and dram_ns are DDR4-model outputs from host "
+                    "counters, not measurements of the card")
+    for name, rec in legs.items():
+        out[name] = {k: rec["meter"][k] for k in METER_KEYS}
+    out["adaptive"].update(
+        topk_frac_per_wave=legs["adaptive"]["meter"]["topk_frac_per_wave"],
+        k_pages_per_wave=legs["adaptive"]["meter"]["k_pages_per_wave"],
+        graphs_captured=legs["adaptive"]["graphs_captured"],
+        later_waves_median_ms=legs["adaptive"]["later_waves_median_ms"])
+    out["coarse_streams_equal_fused"] = (
+        runs["coarse", True]["tokens"] == runs["fused", True]["tokens"]
+        and runs["coarse", True]["logprobs"]
+        == runs["fused", True]["logprobs"])
+    emit(out)
+    for key in ("j_per_token", "ns_per_token"):
+        q, f, c = (out[k][key] for k in ("fused_q8", "fused", "coarse"))
+        if not q < f < c:
+            fail(f"{key}: want fused_q8 < fused < coarse, got {q}, {f}, {c}")
+    if not out["coarse_streams_equal_fused"]:
+        fail("the coarse-grained meter changed the served streams")
+    return out
+
+
 def main_path(torch, np, sa, launch_serve, cfg, params, card):
     """The serving main path at full width, as captured graphs and eagerly
     in one call: ``fused`` and ``fused_q8`` served both ways and held
     bitwise equal (token streams, logprobs, final wave buffer and sampler
-    rows); the prefill graph held bitwise against one eager prompt and
+    rows), the graph runs metered (``--telemetry``) and the eager ones
+    not; the prefill graph held bitwise against one eager prompt and
     timed against it; the exact step and the fused wave profiled eager and
     replayed; one wave from the final state compares the kernels; the 4
     requests served once with ``dispatch`` and its greedy streams compared
-    with ``fused``'s. Returns (records, paged launches by flavor in the
-    graph runs)."""
+    with ``fused``'s; then, over the ``fused`` backend with graphs, a
+    coarse-grained DRAM leg and an adaptive-policy leg, and the metered
+    figures of all four (:func:`metering_summary`). Returns (records,
+    paged launches by flavor in the metered graph runs)."""
     from repro_torch.runtime.graphs import leaves
     from repro_torch.serve import make_fused_wave
     L = cfg.n_layers
     records, prefills, runs = [], {}, {}
 
-    def run(kernel, graphs, record=False):
+    def run(kernel, graphs, record=False, metered=None):
         sess, handles, rec, logits = serve_run(
             torch, np, sa, launch_serve, cfg, params, kernel, L, prefills,
-            graphs=graphs, record=record)
+            graphs=graphs, record=record, metered=metered)
         records.append(rec)
         # streams, not handles: a handle keeps its session (and the
         # session's buffers and graphs) alive, which later peaks would see
-        runs[kernel, graphs] = dict(
+        key = ((kernel, graphs) if metered in (None, "sectored")
+               else (metered, graphs))
+        runs[key] = dict(
             rec=rec, tokens=[h.peek() for h in handles],
             logprobs=[h.logprobs() for h in handles],
             final=host_copy(torch, sess), logits=logits)
@@ -919,8 +1123,8 @@ def main_path(torch, np, sa, launch_serve, cfg, params, card):
             cfg, params, true_sectored=True, seq_len=2048, kernel=kernel,
             device="cuda", graphs=False)
 
-    # fused with graphs (it computes the 4 prefills), then profiles
-    sess, handles = run("fused", True)
+    # fused with graphs, metered (it computes the 4 prefills), then profiles
+    sess, handles = run("fused", True, metered="sectored")
     first_prompt = handles[0].request.prompt
     backend, eager = sess.backend, eager_backend("fused")
     _, state1 = backend.prefill_fn(np.arange(8, dtype=np.int32)[None])
@@ -969,10 +1173,14 @@ def main_path(torch, np, sa, launch_serve, cfg, params, card):
     del sess, handles, backends
     torch.cuda.empty_cache()
     for graphs in (True, False):
-        run("fused_q8", graphs)
+        run("fused_q8", graphs, metered="sectored" if graphs else None)
         torch.cuda.empty_cache()
     run("dispatch", False, record=True)
     torch.cuda.empty_cache()
+    for leg in ("coarse", "adaptive"):
+        run("fused", True, metered=leg)
+        torch.cuda.empty_cache()
+    records.append(metering_summary(runs, card))
 
     fused = runs["fused", False]
     dispatch = runs["dispatch", False]
@@ -1093,7 +1301,8 @@ def main(argv=None) -> int:
         stats = launch_serve.main([
             "--arch", "yi-6b", "--reduced", "--requests", "4",
             "--max-new-tokens", "4", "--max-batch", "4", "--true-sectored",
-            "--fused-kernel", "--policy", "sectored", "--device", "cuda"])
+            "--fused-kernel", "--policy", "sectored", "--telemetry",
+            "--device", "cuda"])
         cli = dict(phase="cli", stats=stats, launches=dict(sa.launches))
         records.append(cli)
         emit(cli)

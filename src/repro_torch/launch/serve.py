@@ -12,11 +12,20 @@
   (``csrc/sectored_attention_paged.cu``); ``--kv-quant`` feeds it
   per-sector int8 KV.
 
+``--telemetry`` wraps the backend in a ``MeteredBackend``: every prefill
+and wave is charged on the host against the paper's DDR4 power model and
+replayed through its command timeline, and an end-of-run table prints
+DRAM joules per token and modeled DRAM ns per token (model outputs, not
+measurements of the card). ``--trace-out`` dumps the per-wave trace as
+JSONL; ``--bg-energy`` adds the modeled background/refresh component.
+``--policy adaptive`` runs the coverage-driven ``AdaptiveSectorPolicy``
+over the meter's recorder (implies ``--telemetry``).
+
 Runs on the GPU, where prefill steps and decode waves replay captured
 CUDA graphs, unless ``--device cpu`` is given. Parameters are random,
 from a seeded generator. The dense DecodeState backend (no
-``--true-sectored``), telemetry, sampling, the page pool, the prefix
-cache, the flight recorder and the mesh are later slices of the port.
+``--true-sectored``), sampling, the page pool, the prefix cache, the
+flight recorder and the mesh are later slices of the port.
 """
 
 from __future__ import annotations
@@ -26,11 +35,14 @@ import argparse
 import numpy as np
 
 from repro_torch import configs
+from repro_torch.core import metrics
 from repro_torch.kernels import backend as kbackend
 from repro_torch.models import model
 from repro_torch.runtime import sectored_decode
-from repro_torch.serve import (AlwaysDense, AlwaysSectored, FifoScheduler,
+from repro_torch.serve import (AdaptiveSectorPolicy, AlwaysDense,
+                               AlwaysSectored, FifoScheduler,
                                HysteresisPolicy, Request, ServeSession)
+from repro_torch.telemetry import MeteredBackend
 
 POLICIES = {"hysteresis": HysteresisPolicy, "dense": AlwaysDense,
             "sectored": AlwaysSectored}
@@ -67,38 +79,50 @@ def build_backend(cfg, params, *, sectored=True, true_sectored=False,
     return backend
 
 
-def build_policy(name):
-    """Shipped SectorPolicy lineup (``--policy``)."""
+def build_policy(name, recorder=None):
+    """Shipped SectorPolicy lineup (``--policy``); ``adaptive`` needs the
+    meter's TraceRecorder as its coverage source."""
     if name == "adaptive":
-        raise NotImplementedError(
-            "the adaptive policy reads telemetry, a later slice of the port")
+        if recorder is None:
+            raise ValueError("adaptive policy needs telemetry "
+                             "(pass --telemetry / a recorder)")
+        return AdaptiveSectorPolicy(recorder)
     return POLICIES[name]()
 
 
 def build_session(cfg, params, *, max_batch=4, sectored=True,
                   scheduler="fifo", vectorized=True, true_sectored=False,
                   seq_len=256, telemetry=False, policy="hysteresis",
-                  mesh=None, page_pool=None, prefix_cache=None, obs=None,
-                  kernel="dispatch", device=None,
-                  graphs=True) -> ServeSession:
+                  mesh=None, bg_energy=False, page_pool=None,
+                  prefix_cache=None, obs=None, kernel="dispatch",
+                  device=None, graphs=True) -> ServeSession:
     """A ServeSession over the port's backend, on ``device`` (None = GPU).
     On the GPU its waves and prefill replay captured CUDA graphs;
-    ``graphs=False`` runs them eagerly."""
+    ``graphs=False`` runs them eagerly. ``telemetry`` (implied by
+    ``policy="adaptive"``) meters the backend."""
     if scheduler != "fifo":
         raise NotImplementedError(
             f"scheduler {scheduler!r}: only fifo is ported yet")
-    if telemetry:
-        raise NotImplementedError("telemetry is a later slice of the port")
     if mesh is not None:
         raise NotImplementedError("the mesh is a later slice of the port")
     backend = build_backend(cfg, params, sectored=sectored,
                             true_sectored=true_sectored, seq_len=seq_len,
                             kernel=kernel, device=device, graphs=graphs)
+    if telemetry or policy == "adaptive":
+        backend = MeteredBackend(backend, background=bg_energy)
+        if policy == "adaptive" and backend.k_for(None) is None:
+            # without a per-k backend the adaptive fraction would be a
+            # silent no-op reported as adaptive results — refuse loudly
+            raise ValueError(
+                "--policy adaptive needs a backend that resolves topk_frac "
+                "to a page budget; add --true-sectored")
+        pol = build_policy(policy, backend.meter.recorder)
+    else:
+        pol = build_policy(policy)
     return ServeSession(backend, max_batch=max_batch,
-                        scheduler=FifoScheduler(),
-                        policy=build_policy(policy), vectorized=vectorized,
-                        page_pool=page_pool, prefix_cache=prefix_cache,
-                        obs=obs)
+                        scheduler=FifoScheduler(), policy=pol,
+                        vectorized=vectorized, page_pool=page_pool,
+                        prefix_cache=prefix_cache, obs=obs)
 
 
 def main(argv=None):
@@ -117,9 +141,20 @@ def main(argv=None):
     ap.add_argument("--kv-quant", action="store_true",
                     help="with --fused-kernel: per-sector int8 KV, "
                          "dequantized inside the kernel (tolerance-gated)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="meter every wave against the DRAM power model "
+                         "and print an end-of-run energy/coverage table")
     ap.add_argument("--policy", default="hysteresis",
-                    choices=sorted(POLICIES),
-                    help="SectorPolicy")
+                    choices=[*POLICIES, "adaptive"],
+                    help="SectorPolicy; adaptive = coverage-driven topk_frac "
+                         "(implies --telemetry)")
+    ap.add_argument("--trace-out", default=None,
+                    help="with --telemetry: dump the per-wave trace JSONL "
+                         "here")
+    ap.add_argument("--bg-energy", action="store_true",
+                    help="with --telemetry: add the modeled background/"
+                         "refresh energy component (derived from the "
+                         "timing model, never wall-clock)")
     ap.add_argument("--stop-token", type=int, action="append", default=None,
                     metavar="ID", dest="stop_tokens",
                     help="EOS contract: a request finishes the moment it "
@@ -141,9 +176,12 @@ def main(argv=None):
     params = model.init_params(cfg, seed=0, device=device)
     kernel = ("fused_q8" if args.kv_quant
               else "fused" if args.fused_kernel else "dispatch")
+    telemetry = args.telemetry or args.policy == "adaptive"
     sess = build_session(cfg, params, max_batch=args.max_batch,
                          true_sectored=args.true_sectored,
-                         policy=args.policy, kernel=kernel, device=device)
+                         telemetry=telemetry, policy=args.policy,
+                         bg_energy=args.bg_energy, kernel=kernel,
+                         device=device)
     rng = np.random.default_rng(0)
     handles = []
     for rid in range(args.requests):
@@ -162,7 +200,59 @@ def main(argv=None):
           f"eos_stops={stats['eos_stops']} "
           f"kv_bytes_saved_at_32k="
           f"{sectored_decode.bytes_saved_fraction(32768):.2f}")
+    if telemetry:
+        print_energy_report(sess, handles, trace_out=args.trace_out)
     return stats
+
+
+def print_energy_report(sess, handles, *, trace_out=None) -> None:
+    """End-of-run energy/coverage table from the session's WaveMeter (the
+    reference's table; joules and DRAM time are DDR4-model outputs from
+    host counters, not measurements of the device)."""
+    meter = sess.meter
+    report = meter.report()
+    tokens = report["tokens"]
+    ema = report["ema"]
+    print("-- telemetry ---------------------------------------------------")
+    print(f"waves={report['waves']} (sectored={report['sectored_waves']} "
+          f"dense={report['dense_waves']}) tokens={tokens} "
+          f"demand_merges={report['demand_merges']}")
+    print(f"pages fetched/valid: {report['pages_fetched']:.1f}/"
+          f"{report['pages_valid']:.1f} "
+          f"(coverage={report['sector_coverage']:.3f}, "
+          f"EMA={ema.get('sector_coverage', float('nan')):.3f}, "
+          f"attn-mass EMA={ema.get('attn_mass', float('nan')):.3f})")
+    bg = ""
+    if report["bg_j"] or report["ref_j"]:
+        bg = (f" bg={report['bg_j'] * 1e3:.3f} "
+              f"refresh={report['ref_j'] * 1e3:.3f}")
+    per_token = metrics.dram_energy_per_token(report["energy_j"], tokens)
+    print(f"DRAM energy: {report['energy_j'] * 1e3:.3f} mJ "
+          f"(act={report['act_j'] * 1e3:.3f} rd={report['rd_j'] * 1e3:.3f} "
+          f"wr={report['wr_j'] * 1e3:.3f} "
+          f"prefill={report['prefill_j'] * 1e3:.3f}{bg}) "
+          f"| {per_token * 1e6:.3f} uJ/token "
+          f"| wall={report['wall_s']:.3f}s")
+    total_ns = report["dram_ns"] + report["prefill_dram_ns"]
+    print(f"modeled DRAM time: {total_ns * 1e-3:.3f} us "
+          f"(decode={report['dram_ns'] * 1e-3:.3f} "
+          f"prefill={report['prefill_dram_ns'] * 1e-3:.3f}) "
+          f"| {total_ns / tokens if tokens else 0.0:.1f} ns/token "
+          f"(modeled from counters, not wall-clock)")
+    if report["audit_checks"]:
+        print(f"energy audit: {report['audit_checks']} reconciliations, "
+              f"max rel err {report['audit_max_rel_err']:.3e} "
+              f"(tolerance 1e-9)")
+    for h in handles[:8]:
+        t = h.telemetry
+        uj = metrics.dram_energy_per_token(t["energy_j"], t["tokens"]) * 1e6
+        print(f"  rid={h.rid:3d} tokens={t['tokens']:4d} "
+              f"energy={t['energy_j'] * 1e6:9.3f} uJ ({uj:.3f} uJ/tok)")
+    if len(handles) > 8:
+        print(f"  ... {len(handles) - 8} more requests")
+    if trace_out:
+        path = meter.recorder.to_jsonl(trace_out)
+        print(f"wrote per-wave trace: {path}")
 
 
 if __name__ == "__main__":

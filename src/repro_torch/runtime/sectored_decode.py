@@ -45,6 +45,7 @@ from repro_torch.models import attention, layers, model
 from repro_torch.runtime import sector_predictor
 from repro_torch.runtime.graphs import Step, leaves
 from repro_torch.serve.backend import ServingBackend
+from repro_torch.telemetry.meters import KVGeometry
 
 PAGE_SIZE = 128  # tokens per KV sector
 TOPK_FRAC = 1 / 8  # fraction of pages fetched
@@ -338,6 +339,20 @@ class SectoredKVBackend(ServingBackend):
             topk_frac = self.topk_frac
         return min(topk_for(self.seq_len, topk_frac, self.min_topk),
                    self.pages)
+
+    def kv_geometry(self):
+        """Cache layout for :class:`repro_torch.telemetry.meters.WaveMeter`.
+
+        A ``fused_q8`` backend's sectored fetches move int8 words, so the
+        geometry carries the bytes-per-word fraction the meter feeds into
+        ``kv_fetch_energy`` (prefill and exact/dense waves read the bf16
+        master cache and stay at full width)."""
+        word_fraction = (quantized_kv.kv_word_fraction()
+                         if self.kernel == "fused_q8" else 1.0)
+        return KVGeometry.from_model_cfg(self.cfg, seq_len=self.seq_len,
+                                         page_size=PAGE_SIZE,
+                                         total_pages=self.pages,
+                                         kv_word_fraction=word_fraction)
 
     def sectored_fn_for(self, topk_frac: float | None):
         if topk_frac is None:

@@ -6,14 +6,14 @@ the top-k page fraction behind one ``decide(occupancy, stats) ->
 PathDecision`` call that the session makes once per wave.
 
 Counterpart of the JAX package's ``serve/policy.py``. The coverage-driven
-``AdaptiveSectorPolicy`` reads the telemetry recorder and waits for the
-port's telemetry slice.
+``AdaptiveSectorPolicy`` reads the telemetry recorder of a metered
+backend (:mod:`repro_torch.telemetry`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Protocol, runtime_checkable
+from typing import Any, Mapping, Protocol, runtime_checkable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,3 +82,73 @@ class AlwaysSectored:
     def decide(self, occupancy: float,
                stats: Mapping[str, int]) -> PathDecision:
         return PathDecision(use_sectored=True, topk_frac=self.topk_frac)
+
+
+@dataclasses.dataclass
+class AdaptiveSectorPolicy:
+    """Coverage-driven fetch-width control: the paper's access-pattern-
+    adaptive memory controller closed over the telemetry loop.
+
+    Consumes the EMA coverage signal a
+    :class:`~repro_torch.telemetry.recorder.TraceRecorder` maintains
+    (``recorder`` is duck-typed: anything with an ``ema`` mapping works)
+    and steers ``PathDecision.topk_frac`` toward a target attention-mass
+    coverage with a deadband:
+
+    * signal **above** ``target + deadband`` — the predictor's top-k
+      already captures more mass than required: narrow the fraction (fetch
+      fewer sectors, save ACT/RD energy);
+    * signal **below** ``target - deadband`` — widen (the workload's
+      attention is spread wider than the current budget);
+    * inside the deadband, or before the first sectored wave has been
+      recorded — hold (no thrash on noise, the hysteresis idea of §8.1
+      applied to fetch *width* instead of the on/off toggle).
+
+    The fraction is re-specialized per wave through
+    ``SectoredKVBackend.sectored_fn_for`` (one step per distinct page
+    budget, cached; on the card each is captured once as a CUDA graph), so
+    adaptation costs one capture per *new* width and nothing after.
+
+    ``signal`` picks the recorder field: ``"attn_mass"`` (default) is the
+    predictor's own mass-capture estimate — honest right after exact-mode
+    phases, biased high under long narrow runs, exactly like the paper's
+    SHT which only observes fetched sectors; ``"sector_coverage"`` is the
+    exact fetched/valid page ratio. With the default signal the policy
+    falls back to sector coverage until a mass estimate exists.
+    """
+
+    recorder: Any
+    target_coverage: float = 0.7
+    deadband: float = 0.1
+    frac_step: float = 0.125
+    min_frac: float = 0.0625
+    max_frac: float = 1.0
+    init_frac: float = 0.5
+    signal: str = "attn_mass"
+    merge_demands: bool = True
+    frac: float = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self) -> None:
+        if not self.min_frac <= self.init_frac <= self.max_frac:
+            raise ValueError(
+                f"init_frac {self.init_frac} outside "
+                f"[{self.min_frac}, {self.max_frac}]")
+        self.frac = self.init_frac
+
+    def _coverage(self) -> float | None:
+        ema = getattr(self.recorder, "ema", None) or {}
+        value = ema.get(self.signal)
+        if value is None and self.signal == "attn_mass":
+            value = ema.get("sector_coverage")
+        return value
+
+    def decide(self, occupancy: float,
+               stats: Mapping[str, int]) -> PathDecision:
+        coverage = self._coverage()
+        if coverage is not None:
+            if coverage > self.target_coverage + self.deadband:
+                self.frac = max(self.frac - self.frac_step, self.min_frac)
+            elif coverage < self.target_coverage - self.deadband:
+                self.frac = min(self.frac + self.frac_step, self.max_frac)
+        return PathDecision(use_sectored=True, topk_frac=self.frac,
+                            merge_demands=self.merge_demands)

@@ -19,16 +19,26 @@ The wave buffer (``batched``) and the sampler rows are allocated once and
 only ever written in place (admission, the demand merge, the wave), so on
 the card a wave is the replay of a CUDA graph captured on them.
 
+Metering is discovered, not configured, as in the reference: a
+:class:`~repro_torch.telemetry.MeteredBackend` carries a ``WaveMeter``,
+which the session drives on the host after each prefill and each wave,
+from counters it already keeps (prompt lengths, emitted tokens, the
+policy's page budget), and from a host copy of the predictor table taken
+after the wave's tokens were read. Nothing of it runs inside a captured
+wave; a plain backend has no meter and every hook is one ``is None``
+check.
+
 This slice serves greedy requests through the FIFO scheduler. The
-reference's page pool, prefix cache, flight recorder, meter, mesh,
-pre-fused (``fuse_wave=False``) and looped (``vectorized=False``) waves
-raise ``NotImplementedError`` when asked for.
+reference's page pool, prefix cache, flight recorder, mesh, pre-fused
+(``fuse_wave=False``) and looped (``vectorized=False``) waves raise
+``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Iterator
 
 import numpy as np
@@ -134,6 +144,22 @@ class StreamHandle:
             pass
         return self.peek()
 
+    # -- telemetry (populated only when the session's backend is metered) --
+
+    @property
+    def telemetry(self) -> dict | None:
+        """This request's metered stats (``energy_j``, ``tokens``,
+        ``pages_fetched``, ``dram_ns``, ...) or None on an unmetered
+        session."""
+        meter = self._session.meter
+        return None if meter is None else meter.request_stats(self.rid)
+
+    @property
+    def energy_j(self) -> float | None:
+        """DRAM joules attributed to this request (None when unmetered)."""
+        stats = self.telemetry
+        return None if stats is None else stats["energy_j"]
+
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet")
@@ -152,8 +178,6 @@ class ServeSession:
                             ("vectorized=False (looped wave)", not vectorized),
                             ("fuse_wave=False (pre-fused wave)",
                              not fuse_wave),
-                            ("a metered backend",
-                             getattr(backend, "meter", None) is not None),
                             ("a mesh backend",
                              getattr(backend, "wave_for", None) is not None)):
             if asked:
@@ -170,6 +194,8 @@ class ServeSession:
         self.policy = policy if policy is not None else HysteresisPolicy()
         self.max_stream_steps = max_stream_steps
         self._vocab = getattr(backend, "vocab", None)
+        # a MeteredBackend carries a WaveMeter; a plain backend has none
+        self.meter = getattr(backend, "meter", None)
         self.queue: collections.deque[StreamHandle] = collections.deque()
         self.slots: list[StreamHandle | None] = [None] * max_batch
         self.completion_order: list[int] = []
@@ -249,6 +275,8 @@ class ServeSession:
         prompt = np.asarray(handle.request.prompt, np.int32)
         logits, state = self.backend.prefill_fn(prompt[None, :])
         self.stats["prefill_calls"] += 1
+        if self.meter is not None:
+            self.meter.record_prefill(handle.rid, len(prompt))
         tok = int(torch.argmax(logits[0].float()).item())
         handle._first_logp = float(token_logprob(
             logits[:1], torch.tensor([tok], device=logits.device)).item())
@@ -342,11 +370,65 @@ class ServeSession:
         for s in active:
             desired[s, 0] = self.slots[s].last_token
         tok_in = torch.as_tensor(desired, device=self.device)
+        t0 = time.perf_counter() if self.meter is not None else 0.0
         out = self._wave_for(fn)(self.batched, tok_in, self._sampler_rows)
         next_tok = out.cpu().numpy()[:, 0]
         logps = self._sampler_rows.logp.cpu().numpy()
         self.scheduler.overlap(self)
-        return self._emit_wave(active, next_tok, logps, use_sectored)
+        # wall_s brackets the wave and the token copy only; it never
+        # enters joules or dram_ns. The wave info is taken before
+        # _emit_wave vacates finished slots, the meter driven after it
+        wall_s = time.perf_counter() - t0 if self.meter is not None else 0.0
+        wave_info = (self._meter_wave_info(active, decision, use_sectored)
+                     if self.meter is not None else None)
+        produced = self._emit_wave(active, next_tok, logps, use_sectored)
+        if wave_info is not None:
+            self.meter.record_wave(wall_s=wall_s, **wave_info)
+        return produced
+
+    def _meter_wave_info(self, active: list[int], decision,
+                         use_sectored: bool) -> dict:
+        """Host-side wave descriptor for ``WaveMeter.record_wave``.
+
+        Positions come from counts the session already keeps (prompt
+        length + emitted tokens), never from the device: at attend time a
+        slot's cache length is ``len(prompt) + len(tokens) - 1`` (the
+        prefill token is emitted before the first wave).
+        """
+        k_for = getattr(self.backend, "k_for", None)
+        k_pages = (k_for(decision.topk_frac)
+                   if use_sectored and k_for is not None else None)
+        if k_pages is not None:
+            # narrow budgets fetch one extra probe page per wave (the SHT
+            # refresh); record_wave caps per-slot fetches at the slot's
+            # valid pages, so full-coverage slots never overpay
+            probe_for = getattr(self.backend, "probe_pages_for", None)
+            if probe_for is not None:
+                k_pages += probe_for(k_pages)
+        slots = [(s, self.slots[s].rid,
+                  len(self.slots[s].request.prompt)
+                  + len(self.slots[s]._tokens) - 1)
+                 for s in active]
+        views = (self._meter_state_views(active)
+                 if use_sectored and k_pages is not None else None)
+        return dict(sectored=use_sectored, k_pages=k_pages, slots=slots,
+                    state_views=views, shared_groups=None)
+
+    def _meter_state_views(self, active: list[int]) -> dict | None:
+        """Per-slot ``(table (L, Hkv, P), position)`` host arrays for the
+        attention-mass estimate. The wave buffer's table is ``(L, slots,
+        Hkv, P)``: a slot's rows are ``table[:, s]`` (the reference stacks
+        slots first and takes ``table[s]``). The copy is taken after the
+        wave's tokens were read (that read already synced) and is a host
+        copy, never a view, since the next replay writes the same buffer.
+        """
+        table = getattr(self.batched, "table", None)
+        if table is None or table.ndim != 4:
+            return None
+        table = table.detach().to("cpu", copy=True).numpy()
+        position = self.batched.position.detach().to("cpu",
+                                                     copy=True).numpy()
+        return {s: (table[:, s], position[s]) for s in active}
 
     def _emit_wave(self, active: list[int], next_tok: np.ndarray,
                    logps: np.ndarray, use_sectored: bool) -> int:

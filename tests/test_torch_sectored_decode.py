@@ -188,3 +188,88 @@ def test_backend_budgets_match_reference(prefilled):
     with pytest.raises(ValueError, match="kernel"):
         sectored_decode.make_serving_fns(cfg, params=params, seq_len=256,
                                          kernel="mosaic", device="cpu")
+
+
+
+@pytest.mark.parametrize("n_layers", [2, 32])
+def test_fused_q8_at_depth_matches_reference(n_layers, capsys):
+    """The int8 path at yi-6b's full depth (32 layers, reduced width) and
+    at 2: teacher-forced from one synthetic cache (N(0, 1) K/V over a
+    three-page prompt) bridged to both stacks, the port's fused_q8
+    logprobs sit as close to the reference's fused_q8 (interpret mode) as
+    the two dispatch paths sit to each other. The int8 gap itself (fused_q8
+    vs dispatch) grows with depth in both stacks alike; the measured
+    numbers print with ``pytest -s``."""
+    from repro import configs as jconfigs
+    from repro.models import model as jmodel
+    from repro_torch import bridge, configs
+
+    deep = dict(n_layers=n_layers, d_model=64, n_heads=4, n_kv_heads=2,
+                d_ff=128, vocab=128, head_dim=32)
+    jcfg = jconfigs.get("yi-6b").reduced(**deep)
+    cfg = configs.get("yi-6b").reduced(**deep)
+    jparams = jax.jit(lambda key: jmodel.init_params(jcfg, key))(
+        jax.random.key(0))
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
+    rng = np.random.default_rng(0)
+    jstate = jsd.init_state(jcfg, 2, SEQ_LEN)
+    kv_shape = jstate.kv.k.shape  # (L, B, Spad, Hkv, hd)
+    live = (np.arange(kv_shape[2]) < PROMPT)[None, None, :, None, None]
+    k, v = (jnp.asarray(rng.normal(size=kv_shape) * live, jnp.bfloat16)
+            for _ in range(2))
+    P = jstate.table.shape[-1]
+    n_valid = (PROMPT - 1) // PAGE + 1
+    table = rng.random(jstate.table.shape) * (np.arange(P) < n_valid)
+    jstate = dataclasses.replace(
+        jstate, kv=dataclasses.replace(
+            jstate.kv, k=k, v=v,
+            length=jnp.full(jstate.kv.length.shape, PROMPT, jnp.int32)),
+        table=jnp.asarray(table, jnp.float32),
+        position=jnp.full((2,), PROMPT, jnp.int32))
+
+    def to_port(s):
+        t = [bridge.tensor_from_numpy(np.asarray(x), device="cpu")
+             for x in (s.kv.k, s.kv.v, s.kv.length, s.table, s.position)]
+        return sectored_decode.SectoredState(
+            kv=sectored_decode.attention.KVCache(k=t[0], v=t[1],
+                                                 length=t[2]),
+            table=t[3], position=t[4])
+
+    jsteps = {kernel: jax.jit(lambda s, t, kernel=kernel:
+                              jsd.sectored_decode_step(
+                                  jparams, jcfg, s, t, K_PAGES, probe=True,
+                                  kernel=kernel))
+              for kernel in ("dispatch", "fused_q8")}
+    jd = jq = jstate
+    td, tq = to_port(jstate), to_port(jstate)
+    toks = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
+    worst = dict(ref_gap=0.0, port_gap=0.0, q8_port_vs_ref=0.0,
+                 dispatch_port_vs_ref=0.0)
+    for i in range(toks.shape[1]):
+        tok = toks[:, i:i + 1]
+        jld, jd = jsteps["dispatch"](jd, jnp.asarray(tok))
+        jlq, jq = jsteps["fused_q8"](jq, jnp.asarray(tok))
+        ld, td = sectored_decode.sectored_decode_step(
+            params, cfg, td, torch.from_numpy(tok), K_PAGES, probe=True,
+            kernel="dispatch")
+        lq, tq = sectored_decode.sectored_decode_step(
+            params, cfg, tq, torch.from_numpy(tok), K_PAGES, probe=True,
+            kernel="fused_q8")
+        jlp = {n: np.asarray(jax.nn.log_softmax(f32(x)))
+               for n, x in (("d", jld), ("q", jlq))}
+        tlp = {n: torch.log_softmax(x.float(), -1).numpy()
+               for n, x in (("d", ld), ("q", lq))}
+        for name, err in (
+                ("ref_gap", jlp["q"] - jlp["d"]),
+                ("port_gap", tlp["q"] - tlp["d"]),
+                ("q8_port_vs_ref", tlp["q"] - jlp["q"]),
+                ("dispatch_port_vs_ref", tlp["d"] - jlp["d"])):
+            worst[name] = max(worst[name], float(np.abs(err).max()))
+    with capsys.disabled():
+        print(f"\nfused_q8, {n_layers} layers, max logprob abs err over 4 "
+              f"steps: {worst}")
+    assert worst["ref_gap"] > 0 and worst["port_gap"] > 0
+    # int8 adds nothing of the port's own: its int8 path is as close to
+    # the reference's as its plain path is (bf16 sums in another order)
+    assert worst["q8_port_vs_ref"] <= 2 * worst["dispatch_port_vs_ref"]

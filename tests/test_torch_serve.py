@@ -24,6 +24,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.runtime import sectored_decode
 from repro_torch.sample import SamplerSpec
 from repro_torch.serve import AlwaysSectored, Request, ServeSession
+from repro_torch.telemetry import MeteredBackend
 
 SEQ_LEN = 384  # 8 padded pages
 PROMPT = 260  # 3 valid pages; k=1 + probe reads 2 of them
@@ -185,7 +186,11 @@ def test_session_rejects_what_is_not_ported(models):
                    dict(fuse_wave=False)):
         with pytest.raises(NotImplementedError):
             ServeSession(backend, **kwargs)
+    # a metered backend is ported: the session discovers its meter
+    metered = ServeSession(MeteredBackend(backend))
+    assert metered.meter is not None and metered.backend.inner is backend
     sess = ServeSession(backend)
+    assert sess.meter is None
     with pytest.raises(NotImplementedError, match="sampling"):
         sess.submit(Request(0, np.arange(4, dtype=np.int32), 2,
                             sampler=SamplerSpec(temperature=0.8)))
