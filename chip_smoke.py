@@ -126,6 +126,14 @@ WAVES = NEW_TOKENS - 1
 ADAPTIVE = dict(target_coverage=0.5, deadband=0.15, frac_step=1 / 6,
                 min_frac=1 / 6, init_frac=2 / 6, max_frac=0.5)
 AUDIT_TOL = 1e-9  # the reference's double-entry audit tolerance
+# the sampled leg: requests 0 and 2 sample with these, 1 and 3 are greedy
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+# the card's draws vs the CPU's: bits and uniforms bitwise; the Gumbel
+# noise may differ by an ulp of each log, so a token may differ only where
+# the two highest perturbed scores lie within this many ulps
+GUMBEL_ULPS = 4
+RNG_SEEDS = (0, 1, 3, 2**31, 2**32 - 1)
+RNG_POSITIONS = (0, 1, 2, 127, 4095)
 
 
 def fail(msg: str):
@@ -720,11 +728,15 @@ def meter_record(np, meters, sess, backend, lengths, host_s, n_waves):
 
 def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
               prefills, *, graphs=True, record=False, dev="cuda",
-              lengths=PROMPT_LENGTHS, seq_len=2048, metered=None):
+              lengths=PROMPT_LENGTHS, seq_len=2048, metered=None,
+              specs=None, dense=False):
     """Serve the 4 requests with ``kernel``, their waves and prefill as
     replays of captured CUDA graphs or, with ``graphs=False``, eagerly,
     through :func:`metered_session` (``metered``: None, "sectored",
-    "coarse" or "adaptive").
+    "coarse" or "adaptive"); ``dense`` serves them on the dense path
+    instead (``build_session`` without ``true_sectored``, unmetered, its
+    prefill one eager forward pass, no paged kernel). ``specs`` gives each
+    request its ``SamplerSpec`` (None: all greedy).
 
     ``prefills`` (prompt bytes -> (logits, state)) carries prefill results
     from one run to the next: prefill runs the exact dispatch step
@@ -743,8 +755,13 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
     def sync():
         if dev == "cuda":
             torch.cuda.synchronize()
-    sess = metered_session(launch_serve, cfg, params, kernel, metered,
-                           seq_len=seq_len, dev=dev, graphs=graphs)
+    if dense:
+        sess = launch_serve.build_session(cfg, params, policy="dense",
+                                          max_batch=4, device=dev,
+                                          graphs=graphs)
+    else:
+        sess = metered_session(launch_serve, cfg, params, kernel, metered,
+                               seq_len=seq_len, dev=dev, graphs=graphs)
     backend = getattr(sess.backend, "inner", sess.backend)
     meter_s = []
     if sess.meter is not None:
@@ -771,9 +788,11 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
     logits_by_rid = record_logits(sess) if record else None
     rng = np.random.default_rng(0)
     lengths = list(lengths)
+    specs = specs or [None] * len(lengths)
     handles = [sess.submit(Request(
         rid, rng.integers(0, cfg.vocab, n).astype(np.int32),
-        max_new_tokens=NEW_TOKENS)) for rid, n in enumerate(lengths)]
+        max_new_tokens=NEW_TOKENS, sampler=specs[rid]))
+        for rid, n in enumerate(lengths)]
     sync()
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -791,19 +810,23 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
     stats = sess.stats
     launches = dict(sa.launches)
     decode_s = sum(wave_ms) / 1e3
-    k = backend.k_for(None)
+    k = None if dense else backend.k_for(None)
     captured = list(sess._wave_cache.values()) if backend.graphs else []
     warmup = {}
     for wave in captured:
         for n_flavor, n in wave.warmup_launches[0].items():
             warmup[n_flavor] = warmup.get(n_flavor, 0) + n
-    out = dict(phase="main_path", kernel=kernel, graphs=backend.graphs,
-               metered=metered, n_layers=n_layers,
+    out = dict(phase="main_path", kernel="dense" if dense else kernel,
+               graphs=backend.graphs, metered=metered, n_layers=n_layers,
+               sampled=[s is not None for s in specs],
+               wave_flavors=[("sampled" if key[1] else "greedy")
+                             for key in sess._wave_cache],
                completed=stats["completed"],
                waves=stats["waves"], sectored_waves=stats["sectored_waves"],
                decode_steps=stats["decode_steps"], launches=launches,
                warmup_launches=warmup,
-               graphs_captured=len(captured) + len(backend._prefill_graphs),
+               graphs_captured=len(captured) + len(
+                   getattr(backend, "_prefill_graphs", ())),
                prefill_s=sum(prefill_s), prefill_s_by_prompt=prefill_s,
                prefills_reused=reused[0], total_s=total_s,
                ms_per_wave=decode_s / stats["waves"] * 1e3,
@@ -813,8 +836,10 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
                decode_tokens_per_s=stats["decode_steps"] / decode_s,
                peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
                             if dev == "cuda" else None),
-               k_pages=k, probe_pages=backend.probe_pages_for(k),
-               padded_pages=backend.pages, prompt_lengths=lengths)
+               k_pages=k,
+               probe_pages=None if dense else backend.probe_pages_for(k),
+               padded_pages=None if dense else backend.pages,
+               prompt_lengths=lengths)
     if sess.meter is not None:
         out["meter"] = meter_record(np, meters, sess, backend, lengths,
                                     meter_s, stats["waves"])
@@ -822,10 +847,11 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
     if not all(h.done for h in handles) or stats["completed"] != 4:
         fail(f"{kernel}: not every request completed: {stats}")
     want = {"bf16": 0, "int8": 0}
-    if kernel != "dispatch":
+    if kernel != "dispatch" and not dense:
         want["int8" if kernel == "fused_q8" else "bf16"] = (
             n_layers * stats["sectored_waves"])
-    if dev == "cuda" and (launches != want or stats["sectored_waves"] == 0):
+    if dev == "cuda" and (launches != want
+                          or (stats["sectored_waves"] == 0) != dense):
         fail(f"{kernel}: launches {launches}, want {want} (n_layers x "
              f"sectored waves of the kernel's flavor)")
     for h in handles:
@@ -1060,7 +1086,8 @@ def metering_summary(runs, card):
     differs from ``fused`` only in the meter, served the same streams."""
     legs = {name: runs[key]["rec"] for name, key in (
         ("fused", ("fused", True)), ("fused_q8", ("fused_q8", True)),
-        ("coarse", ("coarse", True)), ("adaptive", ("adaptive", True)))}
+        ("coarse", ("coarse", True)), ("adaptive", ("adaptive", True)),
+        ("sampled", ("sampled", True)))}
     out = dict(phase="metering", card=card,
                note="joules and dram_ns are DDR4-model outputs from host "
                     "counters, not measurements of the card")
@@ -1075,7 +1102,13 @@ def metering_summary(runs, card):
         runs["coarse", True]["tokens"] == runs["fused", True]["tokens"]
         and runs["coarse", True]["logprobs"]
         == runs["fused", True]["logprobs"])
+    # the meter reads host counters only: sampling moves no joule
+    out["sampled_meter_equal_fused"] = all(
+        out["sampled"][k] == out["fused"][k]
+        for k in ("energy_j", "tokens", "decode_dram_ns", "prefill_dram_ns"))
     emit(out)
+    if not out["sampled_meter_equal_fused"]:
+        fail("the sampled leg's meter differs from the greedy leg's")
     for key in ("j_per_token", "ns_per_token"):
         q, f, c = (out[k][key] for k in ("fused_q8", "fused", "coarse"))
         if not q < f < c:
@@ -1083,6 +1116,207 @@ def metering_summary(runs, card):
     if not out["coarse_streams_equal_fused"]:
         fail("the coarse-grained meter changed the served streams")
     return out
+
+
+def sampled_specs():
+    """The sampled leg's requests: the CLI's ``--temperature 0.8 --top-k
+    50 --top-p 0.9 --sample-every 2 --seed 0``, so requests 0 and 2
+    sample (seed = rid) and 1 and 3 stay greedy, sharing every wave."""
+    from repro_torch.sample import SamplerSpec
+    return [SamplerSpec(seed=rid, **SAMPLED) if rid % 2 == 0 else None
+            for rid in range(len(PROMPT_LENGTHS))]
+
+
+def rng_grid_check(torch) -> dict:
+    """Keys, random bits and uniforms (64,000 per key) drawn on the card
+    over the grid of seeds and positions the CPU tests hold to JAX, each
+    bitwise the port's CPU draws; the Gumbel draws' largest difference in
+    eps * max(1, |g|) (the card's log may round differently)."""
+    from repro_torch.sample import rng
+    seeds = torch.tensor(RNG_SEEDS).repeat_interleave(len(RNG_POSITIONS))
+    pos = torch.tensor(RNG_POSITIONS, dtype=torch.int32).repeat(
+        len(RNG_SEEDS))
+    cpu = rng.token_key(seeds, pos)
+    card = rng.token_key(seeds.cuda(), pos.cuda())
+    vocab = 64000
+    gc = rng.gumbel(cpu, vocab).double()
+    gg = rng.gumbel(card, vocab).cpu().double()
+    eps = torch.finfo(torch.float32).eps
+    return dict(
+        grid=len(seeds),
+        keys_bitwise=bool(torch.equal(card.cpu(), cpu)),
+        bits_bitwise=bool(torch.equal(rng.random_bits(card, vocab).cpu(),
+                                      rng.random_bits(cpu, vocab))),
+        uniforms_bitwise=bool(torch.equal(
+            rng.uniform(card, vocab).cpu().view(torch.int32),
+            rng.uniform(cpu, vocab).view(torch.int32))),
+        gumbel_max_err_eps=float(((gg - gc).abs() / gc.abs().clamp_min(1.0)
+                                  ).max() / eps))
+
+
+def draws_card_vs_cpu(torch, specs, logits_by_rid, tokens) -> dict:
+    """Every wave of the eager sampled run again, from its recorded
+    logits: the card's ``sample_from_logits`` must give the tokens the
+    session emitted, and the CPU's the same tokens, except where the two
+    highest Gumbel-perturbed scores (the CPU's) lie within GUMBEL_ULPS
+    ulps; such near ties are counted."""
+    from repro_torch.sample import SamplerRows, kernel, rng
+    from repro_torch.sample import sample_from_logits
+    n = len(specs)
+    eps = torch.finfo(torch.float32).eps
+    out = dict(draws=0, sampled_draws=0, differ=0, near_ties=0,
+               session_tokens_equal=True)
+    for w in range(WAVES):
+        logits = torch.stack([logits_by_rid[r][w] for r in range(n)])
+        card = sample_from_logits(logits, SamplerRows.from_specs(
+            specs, [w + 1] * n, device="cuda")).cpu()
+        rows = SamplerRows.from_specs(specs, [w + 1] * n)
+        cpu = sample_from_logits(logits.cpu(), rows)
+        out["session_tokens_equal"] &= card.tolist() == [
+            tokens[r][w + 1] for r in range(n)]
+        for i in torch.nonzero(card != cpu).flatten().tolist():
+            out["differ"] += 1
+            if specs[i] is None:
+                continue
+            scaled = logits[i:i + 1].cpu() / specs[i].temperature
+            scaled = kernel._mask_top_p(
+                kernel._mask_top_k(scaled, rows.top_k[i:i + 1]),
+                rows.top_p[i:i + 1])
+            z = (scaled + rng.gumbel(rng.token_key(rows.seed[i:i + 1],
+                                                   rows.pos[i:i + 1]),
+                                     logits.shape[-1]))[0]
+            top = torch.topk(z, 2).values
+            if float(top[0] - top[1]) <= GUMBEL_ULPS * eps * max(
+                    1.0, float(top[0].abs())):
+                out["near_ties"] += 1
+        out["draws"] += n
+        out["sampled_draws"] += sum(s is not None for s in specs)
+    return out
+
+
+def sampled_summary(torch, runs, specs, greedy_waves, sampled_waves, card):
+    """The sampled leg's checks and figures: (a) graph == eager bitwise;
+    (b) the greedy requests' streams equal the greedy ``fused`` graph
+    leg's; (c) a second session with the same seeds reproduces every
+    stream; (d) the card's keys, bits and uniforms equal the CPU's; (e)
+    the card's draws from the recorded logits equal the session's tokens
+    and the CPU's up to counted near ties; (f) ms per wave against the
+    greedy graph leg and the kernels a sampled replay adds; (g) the paged
+    kernel's launches."""
+    sg, se = runs["sampled", True], runs["sampled", False]
+    greedy = runs["fused", True]
+    by_step = {p["step"]: p for p in (*greedy_waves, *sampled_waves)}
+    g_rep = by_step["fused sectored wave, replayed"]
+    s_rep = by_step["fused sampled wave, replayed"]
+    out = dict(
+        phase="sampled", card=card,
+        specs=[s.describe() if s is not None else "greedy" for s in specs],
+        graph_vs_eager_bitwise=same_results(torch, sg, se),
+        greedy_requests_equal_greedy_leg={
+            rid: sg["tokens"][rid] == greedy["tokens"][rid]
+            and sg["logprobs"][rid] == greedy["logprobs"][rid]
+            for rid, s in enumerate(specs) if s is None},
+        sampled_requests_left_greedy={
+            rid: sg["tokens"][rid] != greedy["tokens"][rid]
+            for rid, s in enumerate(specs) if s is not None},
+        same_seeds_reproduce=same_results(torch, sg,
+                                          runs["sampled_again", True]),
+        rng=rng_grid_check(torch),
+        draws=draws_card_vs_cpu(torch, specs, se["logits"], se["tokens"]),
+        ms_per_wave=dict(
+            sampled_graph_median=sg["rec"]["later_waves_median_ms"],
+            greedy_graph_median=greedy["rec"]["later_waves_median_ms"],
+            sampled_graph_mean=sg["rec"]["ms_per_wave"],
+            greedy_graph_mean=greedy["rec"]["ms_per_wave"],
+            sampled_eager_median=se["rec"]["later_waves_median_ms"]),
+        replay=dict(
+            sampled_device_launches=s_rep["device_launches"],
+            greedy_device_launches=g_rep["device_launches"],
+            extra_kernels=(s_rep["device_launches"]
+                           - g_rep["device_launches"]),
+            sampled_busy_ms=s_rep["device_busy_ms"],
+            greedy_busy_ms=g_rep["device_busy_ms"],
+            sampled_unprofiled_ms=s_rep["unprofiled_ms"],
+            greedy_unprofiled_ms=g_rep["unprofiled_ms"],
+            sampled_unprofiled_idle_share=s_rep["unprofiled_idle_share"],
+            top=s_rep["top"]),
+        paged_launches=dict(
+            sampled=sg["rec"]["launches"]["bf16"],
+            sampled_again=runs["sampled_again", True]["rec"]["launches"][
+                "bf16"],
+            profiled_replay=s_rep["sectored_attention_launches"]))
+    emit(out)
+    checks = dict(
+        graph_vs_eager=all(out["graph_vs_eager_bitwise"].values()),
+        greedy_invariant=all(
+            out["greedy_requests_equal_greedy_leg"].values()),
+        sampled=any(out["sampled_requests_left_greedy"].values()),
+        reproduced=all(out["same_seeds_reproduce"].values()),
+        rng=all(out["rng"][k] for k in ("keys_bitwise", "bits_bitwise",
+                                        "uniforms_bitwise"))
+        and out["rng"]["gumbel_max_err_eps"] <= GUMBEL_ULPS,
+        draws=(out["draws"]["session_tokens_equal"]
+               and out["draws"]["differ"] == out["draws"]["near_ties"]))
+    if not all(checks.values()):
+        fail(f"sampled leg: {checks}")
+    return out
+
+
+def dense_leg(torch, np, sa, launch_serve, cfg, params, card,
+              sectored_prefill_s):
+    """The dense path at full width: the 4 greedy requests served with
+    graphs, then eagerly from the same prefilled states, held bitwise
+    (tokens, logprobs, final wave buffer and sampler rows); each prompt's
+    prefill (one eager forward pass) timed beside the sectored exact-scan
+    prefill of the same prompts; one wave profiled eager and replayed."""
+    from repro_torch.serve import make_fused_wave
+    prefills, runs, records = {}, {}, []
+    prof = []
+    for graphs in (True, False):
+        sess, handles, rec, _ = serve_run(
+            torch, np, sa, launch_serve, cfg, params, "dispatch",
+            cfg.n_layers, prefills, graphs=graphs, dense=True)
+        records.append(rec)
+        runs[graphs] = dict(rec=rec, tokens=[h.peek() for h in handles],
+                            logprobs=[h.logprobs() for h in handles],
+                            final=host_copy(torch, sess))
+        if graphs:
+            token = torch.tensor([[h.peek()[-1]] for h in handles],
+                                 dtype=torch.int32, device="cuda")
+            eager = launch_serve.build_backend(cfg, params, device="cuda",
+                                               graphs=False)
+            prof = profile_pair(torch, "dense wave",
+                                make_fused_wave(sess.backend.decode_fn),
+                                make_fused_wave(eager.decode_fn),
+                                (sess.batched, sess._sampler_rows), token)
+            records += prof
+            del eager, token
+        del sess, handles
+        torch.cuda.empty_cache()
+    same = same_results(torch, runs[True], runs[False])
+    graph, eager = runs[True]["rec"], runs[False]["rec"]
+    out = dict(phase="dense", card=card, bitwise=same,
+               prefill_s_by_prompt=graph["prefill_s_by_prompt"],
+               prefill_4_prompts_s=graph["prefill_s"],
+               sectored_exact_prefill_4_prompts_s=sectored_prefill_s,
+               graph=dict(later_waves_median_ms=graph[
+                   "later_waves_median_ms"], ms_per_wave=graph["ms_per_wave"],
+                   first_wave_ms=graph["first_wave_ms"],
+                   peak_mem_gb=graph["peak_mem_gb"]),
+               eager=dict(later_waves_median_ms=eager[
+                   "later_waves_median_ms"], ms_per_wave=eager["ms_per_wave"],
+                   peak_mem_gb=eager["peak_mem_gb"]),
+               idle_share={p["step"]: p["idle_share"] for p in prof},
+               unprofiled_idle_share={p["step"]: p["unprofiled_idle_share"]
+                                      for p in prof},
+               unprofiled_ms={p["step"]: p["unprofiled_ms"] for p in prof},
+               device_launches={p["step"]: p["device_launches"]
+                                for p in prof})
+    records.append(out)
+    emit(out)
+    if not all(same.values()):
+        fail(f"dense: graph and eager runs differ: {same}")
+    return records
 
 
 def main_path(torch, np, sa, launch_serve, cfg, params, card):
@@ -1103,14 +1337,15 @@ def main_path(torch, np, sa, launch_serve, cfg, params, card):
     L = cfg.n_layers
     records, prefills, runs = [], {}, {}
 
-    def run(kernel, graphs, record=False, metered=None):
+    def run(kernel, graphs, record=False, metered=None, specs=None,
+            name=None):
         sess, handles, rec, logits = serve_run(
             torch, np, sa, launch_serve, cfg, params, kernel, L, prefills,
-            graphs=graphs, record=record, metered=metered)
+            graphs=graphs, record=record, metered=metered, specs=specs)
         records.append(rec)
         # streams, not handles: a handle keeps its session (and the
         # session's buffers and graphs) alive, which later peaks would see
-        key = ((kernel, graphs) if metered in (None, "sectored")
+        key = ((name or kernel, graphs) if metered in (None, "sectored")
                else (metered, graphs))
         runs[key] = dict(
             rec=rec, tokens=[h.peek() for h in handles],
@@ -1180,7 +1415,35 @@ def main_path(torch, np, sa, launch_serve, cfg, params, card):
     for leg in ("coarse", "adaptive"):
         run("fused", True, metered=leg)
         torch.cuda.empty_cache()
+
+    # the sampled leg: the fused backend's mixed greedy/sampled waves, with
+    # graphs (metered), eagerly (logits kept) and with graphs again
+    specs = sampled_specs()
+    for name, graphs, metered, record in (
+            ("sampled", True, "sectored", False),
+            ("sampled", False, None, True),
+            ("sampled_again", True, "sectored", False)):
+        sess, handles = run("fused", graphs, record=record, metered=metered,
+                            specs=specs, name=name)
+        if name == "sampled" and graphs:
+            token = torch.tensor([[h.peek()[-1]] for h in handles],
+                                 dtype=torch.int32, device="cuda")
+            eager = eager_backend("fused")
+            sampled_waves = profile_pair(
+                torch, "fused sampled wave",
+                make_fused_wave(sess.backend.sectored_fn_for(None),
+                                sampled=True),
+                make_fused_wave(eager.sectored_fn_for(None), sampled=True),
+                (sess.batched, sess._sampler_rows), token)
+            records += sampled_waves
+            del eager, token
+        del sess, handles
+        torch.cuda.empty_cache()
+    records.append(sampled_summary(torch, runs, specs, waves, sampled_waves,
+                                   card))
     records.append(metering_summary(runs, card))
+    records += dense_leg(torch, np, sa, launch_serve, cfg, params, card,
+                         runs["fused", True]["rec"]["prefill_s"])
 
     fused = runs["fused", False]
     dispatch = runs["dispatch", False]
@@ -1221,7 +1484,8 @@ def main_path(torch, np, sa, launch_serve, cfg, params, card):
     for k, flags in same.items():
         if not all(flags.values()):
             fail(f"{k}: graph and eager runs differ: {flags}")
-    launches = {"bf16": runs["fused", True]["rec"]["launches"]["bf16"],
+    launches = {"bf16": sum(runs[k, True]["rec"]["launches"]["bf16"]
+                            for k in ("fused", "sampled", "sampled_again")),
                 "int8": runs["fused_q8", True]["rec"]["launches"]["int8"]}
     return records, launches
 
@@ -1234,6 +1498,7 @@ def main(argv=None) -> int:
                     help="build and check the kernels only (no serving)")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1308,6 +1573,16 @@ def main(argv=None) -> int:
         emit(cli)
         if stats["completed"] != 4 or sa.launches["bf16"] == 0:
             fail(f"CLI run: {stats}, launches {sa.launches}")
+        # the dense path with sampling, as the CLI runs it
+        stats = launch_serve.main([
+            "--arch", "yi-6b", "--reduced", "--requests", "4",
+            "--max-new-tokens", "4", "--max-batch", "4", "--temperature",
+            "0.8", "--top-p", "0.9", "--seed", "3", "--sample-every", "2",
+            "--device", "cuda"])
+        records.append(dict(phase="cli_dense_sampled", stats=stats))
+        emit(records[-1])
+        if stats["completed"] != 4:
+            fail(f"dense sampled CLI run: {stats}")
 
     kernels = []
     for flavor in ("bf16", "int8"):
@@ -1315,7 +1590,9 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=f"sectored_attention_paged_{flavor}", route="cuda",
             source=KERNEL_SOURCE, replaces=TPU_KERNEL,
-            path="serving main path, CUDA graph replays",
+            path=("serving main path, CUDA graph replays: the greedy "
+                  "fused leg and the two sampled graph legs" if flavor ==
+                  "bf16" else "serving main path, CUDA graph replays"),
             launches=launches[flavor], max_abs_err=worst[flavor],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
@@ -1325,6 +1602,8 @@ def main(argv=None) -> int:
     if any(not math.isfinite(k[key]) for k in kernels
            for key in ("ms", "plain_ms", "bound_ms")):
         fail("non-finite kernel time or bound")
+    records.append(dict(phase="total", seconds=time.perf_counter() - t_start))
+    emit(records[-1])
     if args.out:
         path = Path(args.out)
         path.parent.mkdir(parents=True, exist_ok=True)

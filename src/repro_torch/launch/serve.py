@@ -1,9 +1,12 @@
 """Serving launcher of the port (counterpart of the JAX package's
 ``launch/serve.py``).
 
-``python -m repro_torch.launch.serve --arch yi-6b --reduced --true-sectored
---fused-kernel [--kv-quant]``
+``python -m repro_torch.launch.serve --arch yi-6b --reduced
+[--true-sectored [--fused-kernel [--kv-quant]]] [--temperature T ...]``
 
+* without ``--true-sectored`` — the dense path: slots hold the model's
+  DecodeState, prefill is ``model.prefill`` (one forward pass) and every
+  wave runs ``model.decode_step``;
 * ``--true-sectored`` — slots hold SectoredState: exact mode (every valid
   page) when the policy says dense, predictor top-k when it says
   sectored, with the shared-prefix demand OR-merge before each fetch;
@@ -21,11 +24,17 @@ JSONL; ``--bg-energy`` adds the modeled background/refresh component.
 ``--policy adaptive`` runs the coverage-driven ``AdaptiveSectorPolicy``
 over the meter's recorder (implies ``--telemetry``).
 
-Runs on the GPU, where prefill steps and decode waves replay captured
-CUDA graphs, unless ``--device cpu`` is given. Parameters are random,
-from a seeded generator. The dense DecodeState backend (no
-``--true-sectored``), sampling, the page pool, the prefix cache, the
-flight recorder and the mesh are later slices of the port.
+``--temperature`` > 0 samples every ``--sample-every``'th request (the
+rest stay greedy and share its waves) with ``--top-k`` / ``--top-p`` and
+the seed ``--seed + rid``, printed as a provenance column; the sampler
+runs on the device inside the wave.
+
+Runs on the GPU, where decode waves (and the sectored prefill steps)
+replay captured CUDA graphs, unless ``--device cpu`` is given; the dense
+prefill runs eagerly, its shapes following the prompt. Parameters are
+random, from a seeded generator. The overlap scheduler, the page pool,
+the prefix cache, the flight recorder and the mesh are later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -33,30 +42,70 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch import configs
 from repro_torch.core import metrics
 from repro_torch.kernels import backend as kbackend
 from repro_torch.models import model
 from repro_torch.runtime import sectored_decode
+from repro_torch.runtime.graphs import Step
+from repro_torch.sample import SamplerSpec
 from repro_torch.serve import (AdaptiveSectorPolicy, AlwaysDense,
                                AlwaysSectored, FifoScheduler,
-                               HysteresisPolicy, Request, ServeSession)
+                               HysteresisPolicy, Request, ServeSession,
+                               ServingBackend)
 from repro_torch.telemetry import MeteredBackend
+from repro_torch.telemetry.meters import KVGeometry
 
 POLICIES = {"hysteresis": HysteresisPolicy, "dense": AlwaysDense,
             "sectored": AlwaysSectored}
 
 
+class DenseBackend(ServingBackend):
+    """The dense DecodeState data path (the reference's ``build_backend``
+    without ``--true-sectored``): prefill is ``model.prefill``, decode is
+    ``model.decode_step``, and the "sectored" step is that same decode
+    (the policy's toggle then changes nothing but the stats).
+
+    On the card (``graphs=True``) the decode step and the session's waves
+    over it replay captured CUDA graphs in one memory pool, where the
+    reference jits them; prefill runs eagerly, its shapes following the
+    prompt (the reference's jit retraces per length). ``graphs=False``
+    runs everything eagerly; a CPU backend always does.
+    """
+
+    def __init__(self, cfg, params, *, sectored: bool = True, device=None,
+                 graphs: bool = True):
+        model._check_supported(cfg)
+        self.device = kbackend.resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.graphs = graphs and self.device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
+
+        def step_(state, token):
+            return model.decode_step_(params, cfg, state, token)
+        decode = Step(step_, graphs=self.graphs, pool=self.pool)
+        super().__init__(self._prefill, decode, decode if sectored else None,
+                         vocab=cfg.vocab)
+
+    def _prefill(self, tokens):
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
+                                 device=self.device)
+        return model.prefill(self.params, self.cfg, tokens)
+
+
 def build_backend(cfg, params, *, sectored=True, true_sectored=False,
                   seq_len=256, kernel="dispatch", device=None, graphs=True):
-    """The data path: a SectoredState-backed backend.
+    """The data path: SectoredState-backed (``true_sectored``) or the
+    dense :class:`DenseBackend`.
 
     ``kernel`` picks the sectored decode flavor: ``"dispatch"`` (gather +
     attend in torch), ``"fused"`` (the CUDA kernel) or ``"fused_q8"``
     (the kernel over per-sector int8 KV). On the card the steps, waves and
-    prefill replay captured CUDA graphs; ``graphs=False`` runs them
-    eagerly.
+    sectored prefill replay captured CUDA graphs; ``graphs=False`` runs
+    them eagerly.
     """
     if true_sectored and (cfg.attn_free or cfg.layer_pattern):
         raise ValueError(
@@ -68,9 +117,8 @@ def build_backend(cfg, params, *, sectored=True, true_sectored=False,
             "--fused-kernel/--kv-quant need --true-sectored (the dense "
             "DecodeState backend has no paged KV for the kernel to steer)")
     if not true_sectored:
-        raise NotImplementedError(
-            "the dense DecodeState backend (no --true-sectored) needs "
-            "model.prefill, a later slice of the port; pass --true-sectored")
+        return DenseBackend(cfg, params, sectored=sectored, device=device,
+                            graphs=graphs)
     backend = sectored_decode.make_serving_fns(cfg, params=params,
                                                seq_len=seq_len, kernel=kernel,
                                                device=device, graphs=graphs)
@@ -109,7 +157,12 @@ def build_session(cfg, params, *, max_batch=4, sectored=True,
                             true_sectored=true_sectored, seq_len=seq_len,
                             kernel=kernel, device=device, graphs=graphs)
     if telemetry or policy == "adaptive":
-        backend = MeteredBackend(backend, background=bg_energy)
+        # the dense backend carries no kv_geometry(); derive one from the
+        # model config so the meter can convert counters to joules
+        geometry = (None if true_sectored else KVGeometry.from_model_cfg(
+            cfg, seq_len=seq_len, page_size=sectored_decode.PAGE_SIZE))
+        backend = MeteredBackend(backend, geometry=geometry,
+                                 background=bg_energy)
         if policy == "adaptive" and backend.k_for(None) is None:
             # without a per-k backend the adaptive fraction would be a
             # silent no-op reported as adaptive results — refuse loudly
@@ -155,6 +208,19 @@ def main(argv=None):
                     help="with --telemetry: add the modeled background/"
                          "refresh energy component (derived from the "
                          "timing model, never wall-clock)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature; 0 (default) = greedy. "
+                         "> 0 samples every --sample-every'th request")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep only the k highest logits (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus truncation mass (1.0 = off)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="base RNG seed; request rid samples with seed "
+                         "(--seed + rid), printed as the provenance column")
+    ap.add_argument("--sample-every", type=int, default=1,
+                    help="sample every Nth request, leave the rest greedy "
+                         "(mixed batches share one fused wave)")
     ap.add_argument("--stop-token", type=int, action="append", default=None,
                     metavar="ID", dest="stop_tokens",
                     help="EOS contract: a request finishes the moment it "
@@ -162,6 +228,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.sample_every < 1:
+        ap.error("--sample-every must be >= 1")
+    if args.temperature == 0 and (args.top_k or args.top_p < 1.0
+                                  or args.seed or args.sample_every != 1):
+        # a filter/seed/stride without a temperature would silently
+        # decode greedy: refuse instead of faking a sampling run
+        ap.error("--top-k/--top-p/--seed/--sample-every need "
+                 "--temperature > 0 (temperature 0 is greedy decoding)")
     if args.kv_quant and not args.fused_kernel:
         ap.error("--kv-quant needs --fused-kernel (dequant runs inside "
                  "the fused kernel; the dispatch path reads full-width)")
@@ -186,9 +260,16 @@ def main(argv=None):
     handles = []
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=8 + rid % 5).astype(np.int32)
+        sampler = None
+        if args.temperature > 0 and rid % args.sample_every == 0:
+            # seed = --seed + rid, printed below, so any one stream can
+            # be replayed alone
+            sampler = SamplerSpec(temperature=args.temperature,
+                                  top_k=args.top_k, top_p=args.top_p,
+                                  seed=args.seed + rid)
         handles.append(sess.submit(Request(
             rid, prompt, max_new_tokens=args.max_new_tokens,
-            stop_tokens=tuple(args.stop_tokens or ()))))
+            sampler=sampler, stop_tokens=tuple(args.stop_tokens or ()))))
     stats = sess.run_until_drained()
     if not all(h.done for h in handles):
         raise RuntimeError("session drained with unfinished requests")
@@ -200,9 +281,24 @@ def main(argv=None):
           f"eos_stops={stats['eos_stops']} "
           f"kv_bytes_saved_at_32k="
           f"{sectored_decode.bytes_saved_fraction(32768):.2f}")
+    if args.temperature > 0:
+        print_seed_provenance(handles, base_seed=args.seed)
     if telemetry:
         print_energy_report(sess, handles, trace_out=args.trace_out)
     return stats
+
+
+def print_seed_provenance(handles, *, base_seed: int, limit: int = 16) -> None:
+    """Per-request seed provenance: how each stream's RNG identity was
+    derived, so any one of them can be replayed alone."""
+    print(f"-- sampling (base seed {base_seed}; per-request seed = "
+          f"base + rid) ------------------")
+    for h in handles[:limit]:
+        spec = h.request.sampler
+        desc = spec.describe() if spec is not None else "greedy"
+        print(f"  rid={h.rid:3d} sampler={desc:28s} tokens={len(h.peek())}")
+    if len(handles) > limit:
+        print(f"  ... {len(handles) - limit} more requests")
 
 
 def print_energy_report(sess, handles, *, trace_out=None) -> None:

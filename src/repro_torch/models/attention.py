@@ -1,7 +1,8 @@
-"""Grouped-query attention for decode (counterpart of the JAX package's
-``models/attention.py``: ``qkv``, ``KVCache``, ``init_cache`` and
-``decode_attend``). Full-sequence ``attend`` and its blocked form belong
-to a later slice of the port (prefill and training).
+"""Grouped-query attention (counterpart of the JAX package's
+``models/attention.py``): ``qkv``, full causal ``attend`` (prefill) and its
+blocked form, ``KVCache``, ``init_cache`` and one-token ``decode_attend``.
+Everything here is plain torch, as the reference leaves it to XLA: no
+kernel and no SDPA.
 
 All shapes: x (B, S, D); q (B, S, H, hd); kv (B, S, Hkv, hd).
 """
@@ -65,6 +66,84 @@ def out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     h, k, d = wo.shape
     return torch.matmul(out.reshape(*out.shape[:-2], h * k),
                         wo.reshape(h * k, d))
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, H, hd), each kv head repeated H/Hkv
+    times."""
+    return torch.repeat_interleave(k, n_heads // k.shape[2], dim=2)
+
+
+def attend(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+           window: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) full attention: x (B, S, D),
+    positions (B, S) -> (B, S, D).
+
+    As the reference: bf16 scores (one bf16 product, then f32), an f32
+    softmax cast to ``x.dtype`` before P·V. ``cfg.blocked_attention``
+    (without a window) streams :func:`_attend_blocked` instead.
+    """
+    q, k, v = qkv(params, cfg, x, positions)
+    if getattr(cfg, "blocked_attention", False) and window == 0:
+        return out_project(_attend_blocked(cfg, q, k, v, positions),
+                           params["wo"])
+    kf = _expand_kv(k, cfg.n_heads)
+    vf = _expand_kv(v, cfg.n_heads)
+    # (B, H, S, hd) @ (B, H, hd, S): einsum("bqhk,bshk->bhqs")
+    scores = torch.matmul(q.transpose(1, 2),
+                          kf.permute(0, 2, 3, 1)).float()
+    scores = scores / torch.sqrt(
+        torch.full((), cfg.head_dim_, dtype=torch.float32, device=x.device))
+    qpos = positions[:, :, None]
+    kpos = positions[:, None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.matmul(w, vf.transpose(1, 2)).transpose(1, 2)
+    return out_project(out, params["wo"])
+
+
+def _attend_blocked(cfg, q, k, v, positions, block: int = 512):
+    """Flash-style blocked causal attention in plain torch: KV blocks of
+    ``block`` tokens streamed with a running max and sum, so no (S x S)
+    score tensor exists. bf16 operands with f32 products and sums; ``p``
+    is cast to the V dtype before P·V, as the reference does. Needs
+    ``S % block == 0``, as the reference's reshape does.
+
+    q (B, S, H, hd), k / v (B, S, Hkv, hd) -> (B, S, H, hd) in q's dtype.
+    """
+    B, S, H, hd = q.shape
+    if S % block:
+        raise ValueError(f"blocked attention needs S % {block} == 0, got "
+                         f"S={S}")
+    G = cfg.n_kv_heads
+    qg = q.reshape(B, S, G, H // G, hd).float()
+    scale = 1.0 / torch.sqrt(torch.full((), hd, dtype=torch.float32,
+                                        device=q.device))
+    m = torch.full((B, S, G, H // G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, S, G, H // G, hd), dtype=torch.float32,
+                      device=q.device)
+    for start in range(0, S, block):
+        kblk = k[:, start:start + block].float()
+        vblk = v[:, start:start + block]
+        s_ = torch.einsum("bsgrk,bcgk->bsgrc", qg, kblk) * scale
+        kpos = start + torch.arange(block, device=q.device)
+        mask = (kpos[None, None, :] <= positions[:, :, None])[:, :, None,
+                                                              None, :]
+        s_ = torch.where(mask, s_, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s_, dim=-1))
+        p = torch.where(mask, torch.exp(s_ - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bsgrc,bcgk->bsgrk", p.to(vblk.dtype).float(), vblk.float())
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.reshape(B, S, H, hd).to(q.dtype)
 
 
 @dataclasses.dataclass

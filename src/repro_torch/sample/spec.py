@@ -14,10 +14,7 @@ the pre-sampling serving stack; ``Request.sampler is None`` is the same
 thing spelled implicitly, so every legacy call site keeps its exact
 token streams.
 
-Counterpart of the JAX package's ``sample/spec.py``. This slice of the
-port serves greedy specs only: a stochastic spec validates here but is
-refused (``NotImplementedError``) where rows are built, because the
-reference's threefry-keyed draws are the sampling slice's job.
+Counterpart of the JAX package's ``sample/spec.py``.
 """
 
 from __future__ import annotations
@@ -35,7 +32,7 @@ class SamplerSpec:
     truncation: keep the smallest descending-probability prefix whose
     mass reaches ``p`` (``1.0`` disables). ``seed`` — the request's RNG
     identity; together with the token position it fully determines every
-    draw (the reference's ``repro.sample.rng``; not ported yet).
+    draw (:mod:`repro_torch.sample.rng`).
 
     Filters compose in the conventional order temperature -> top-k ->
     top-p (top-p mass is computed on the already-top-k-filtered

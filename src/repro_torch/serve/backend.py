@@ -1,10 +1,11 @@
-"""DecodeBackend container and the fused greedy wave (counterpart of the
-JAX package's ``serve/backend.py``).
+"""DecodeBackend container and the fused wave (counterpart of the JAX
+package's ``serve/backend.py``).
 
 A backend bundles the data path: ``prefill_fn``, dense ``decode_fn``,
 ``sectored_fn`` and ``demand_merge_fn``. :func:`fused_select_step`
-composes a decode step with on-device token selection, the stop guard and
-the token's logprob; :func:`make_fused_wave` is the wave the session runs,
+composes a decode step with on-device token selection (greedy first-max,
+or the full :mod:`repro_torch.sample` kernel), the stop guard and the
+token's logprob; :func:`make_fused_wave` is the wave the session runs,
 which writes the new state and sampler rows in place. The reference vmaps
 a per-slot step over stacked slot states; here the slot axis IS the batch
 axis of one state, so the wave is one batched call. Where the reference
@@ -22,7 +23,8 @@ from typing import Callable
 import torch
 
 from repro_torch.runtime.graphs import copy_tree_
-from repro_torch.sample import SamplerRows, greedy_select, token_logprob
+from repro_torch.sample import SamplerRows, sample_from_logits, token_logprob
+from repro_torch.sample.kernel import greedy_select
 
 
 class ServingBackend:
@@ -60,16 +62,23 @@ class ServingBackend:
                 f"merge={self.demand_merge_fn is not None})")
 
 
-def _select_(logits, token: torch.Tensor, rows: SamplerRows):
-    """Greedy selection with the stop guard, advancing ``rows`` and
+def _select_(logits, token: torch.Tensor, rows: SamplerRows,
+              sampled: bool):
+    """Token selection with the stop guard, advancing ``rows`` and
     writing each token's logprob into ``rows.logp`` in place; returns the
     ``(slots, 1)`` int32 tokens.
+
+    ``sampled`` False is first-max argmax with no sampling math; True is
+    :func:`~repro_torch.sample.sample_from_logits`, whose greedy branch is
+    the same argmax, so a greedy slot's token does not depend on the
+    flavor its wave runs.
 
     Stop guard (the EOS contract): a slot whose INPUT token is in its
     stop set re-emits that token, keeps its RNG counter and reports
     logprob 0, so a finished slot can never emit past EOS.
     """
-    tok = greedy_select(logits)
+    tok = (sample_from_logits(logits, rows) if sampled
+           else greedy_select(logits))
     last = token.reshape(token.shape[0], -1)[:, -1].to(torch.int32)
     stopped = torch.any(last[:, None] == rows.stop, dim=-1)
     tok = torch.where(stopped, last, tok)
@@ -78,18 +87,18 @@ def _select_(logits, token: torch.Tensor, rows: SamplerRows):
     return tok[:, None]
 
 
-def fused_select_step(fn: Callable) -> Callable:
-    """Decode step with greedy token selection fused in.
+def fused_select_step(fn: Callable, *, sampled: bool = False) -> Callable:
+    """Decode step with token selection fused in.
 
     Wraps ``fn(state, token) -> (logits, new_state)`` into
     ``fused(state, token, rows) -> (tok, new_state, advanced_rows)``;
     ``token`` and ``tok`` are ``(slots, 1)`` int32. ``rows`` is left as
-    it was (see :func:`_select_` for the stop guard).
+    it was (see :func:`_select_` for ``sampled`` and the stop guard).
     """
     def fused(state, token: torch.Tensor, rows: SamplerRows):
         logits, new_state = fn(state, token)
         rows = rows.clone()
-        return _select_(logits, token, rows), new_state, rows
+        return _select_(logits, token, rows, sampled), new_state, rows
 
     return fused
 
@@ -104,12 +113,14 @@ def _in_place(fn: Callable) -> Callable:
     return step_
 
 
-def make_fused_wave(fn: Callable) -> Callable:
+def make_fused_wave(fn: Callable, *, sampled: bool = False) -> Callable:
     """The session's wave ``wave(state, token, rows) -> tok``: the decode
-    step ``fn``, greedy selection, the stop guard and the logprob over all
-    slots at once, writing the new state and advanced rows (with the
-    logprobs) into ``state`` and ``rows``. ``tok`` is ``(slots, 1)``
-    int32.
+    step ``fn``, token selection (``sampled``: see :func:`_select_`), the
+    stop guard and the logprob over all slots at once, writing the new
+    state and advanced rows (with the logprobs) into ``state`` and
+    ``rows``. ``tok`` is ``(slots, 1)`` int32. Memoization is the
+    caller's (``ServeSession._wave_for`` caches per ``(id(fn),
+    sampled)``).
 
     A step with an in-place body (``fn.step_``) runs it directly, and one
     that offers ``capture`` makes the whole wave one captured CUDA graph
@@ -119,7 +130,7 @@ def make_fused_wave(fn: Callable) -> Callable:
     step_ = getattr(fn, "step_", None) or _in_place(fn)
 
     def wave(state, token: torch.Tensor, rows: SamplerRows):
-        return _select_(step_(state, token), token, rows)
+        return _select_(step_(state, token), token, rows, sampled)
 
     capture = getattr(fn, "capture", None)
     return capture(wave) if capture is not None else wave

@@ -11,13 +11,22 @@
 fused: the reference stacks per-slot states on a new leading axis and
 ``jit(vmap)``s a per-slot step; here the slots ARE the batch axis of one
 state, and the wave (:func:`~repro_torch.serve.backend.make_fused_wave`)
-selects tokens greedily on the device, applies the stop guard and
-returns each token's logprob. The EOS contract (``Request.stop_tokens``)
-is enforced on the host and inside the wave, as in the reference.
+selects tokens on the device, applies the stop guard and returns each
+token's logprob. A wave whose slots are all greedy runs the greedy
+flavor; one with any sampled request runs the sampled flavor, whose
+greedy branch is the same argmax, so a greedy stream does not depend on
+its co-residents. Sampled tokens are keyed by ``(seed, position)``: the
+prefill token draws at counter ``len(tokens)`` (0 when fresh), each wave
+at the slot's row counter. The EOS contract (``Request.stop_tokens``) is
+enforced on the host and inside the wave, as in the reference.
 
 The wave buffer (``batched``) and the sampler rows are allocated once and
 only ever written in place (admission, the demand merge, the wave), so on
-the card a wave is the replay of a CUDA graph captured on them.
+the card a wave is the replay of a CUDA graph captured on them. A state
+joins the buffer by its shape signature, as in the reference: a request
+whose prefilled state has another shape (a dense prompt in another
+1024-token bucket) rebuilds the buffer when no slot is active and raises
+``ValueError`` otherwise (FIFO has no paged admission).
 
 Metering is discovered, not configured, as in the reference: a
 :class:`~repro_torch.telemetry.MeteredBackend` carries a ``WaveMeter``,
@@ -28,10 +37,10 @@ after the wave's tokens were read. Nothing of it runs inside a captured
 wave; a plain backend has no meter and every hook is one ``is None``
 check.
 
-This slice serves greedy requests through the FIFO scheduler. The
-reference's page pool, prefix cache, flight recorder, mesh, pre-fused
-(``fuse_wave=False``) and looped (``vectorized=False``) waves raise
-``NotImplementedError`` when asked for.
+This slice serves greedy and sampled requests through the FIFO
+scheduler. The reference's page pool, prefix cache, flight recorder,
+mesh, pre-fused (``fuse_wave=False``) and looped (``vectorized=False``)
+waves raise ``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -45,9 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend as kbackend
-from repro_torch.runtime.graphs import copy_tree_
+from repro_torch.runtime.graphs import copy_tree_, leaves
 from repro_torch.sample import MAX_STOP_TOKENS, SamplerRows, SamplerSpec
-from repro_torch.sample import token_logprob
+from repro_torch.sample import sample_token, token_logprob
 from repro_torch.serve.backend import make_fused_wave
 from repro_torch.serve.policy import HysteresisPolicy
 from repro_torch.serve.scheduler import FifoScheduler
@@ -65,7 +74,7 @@ class Request:
     rid: int
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int
-    # None = greedy; a stochastic spec is refused by this slice of the port
+    # None = greedy (as a spec with temperature 0)
     sampler: SamplerSpec | None = None
     # EOS contract: emitting any of these ids finishes the request (the
     # stop token itself IS emitted, nothing after it)
@@ -161,6 +170,12 @@ class StreamHandle:
         return None if stats is None else stats["energy_j"]
 
 
+def state_signature(state) -> tuple:
+    """Shape/dtype fingerprint of a decode state: two states with equal
+    signatures can share a wave buffer."""
+    return tuple((tuple(t.shape), str(t.dtype)) for t in leaves(state))
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to repro_torch yet")
 
@@ -202,8 +217,9 @@ class ServeSession:
         self.stats = self._zero_stats()
         # the wave's state: slots are its batch axis
         self.batched = None
+        self._batched_sig = None
         self._sampler_rows = SamplerRows.init(max_batch, device=self.device)
-        self._wave_cache: dict[int, object] = {}
+        self._wave_cache: dict[tuple, object] = {}
 
     @staticmethod
     def _zero_stats() -> dict[str, int]:
@@ -233,10 +249,6 @@ class ServeSession:
                 f"request {request.rid}: max_new_tokens must be >= 1, got "
                 f"{request.max_new_tokens} (the prefill always emits one "
                 f"token)")
-        if request.sampler is not None and not request.sampler.is_greedy:
-            raise _not_ported(
-                f"request {request.rid}: stochastic sampling "
-                f"({request.sampler.describe()})")
         stop = tuple(int(t) for t in (request.stop_tokens or ()))
         if len(stop) > MAX_STOP_TOKENS:
             raise ValueError(
@@ -269,25 +281,56 @@ class ServeSession:
     # -- prefill / admission (driven by the scheduler) --------------------
 
     def prefill_one(self, handle: StreamHandle):
-        """Blocking single-prompt prefill; returns (first_token, state).
-        The first token is the host's first-max argmax, as in the
-        reference."""
+        """Blocking single-prompt prefill; returns (first_token, state)."""
         prompt = np.asarray(handle.request.prompt, np.int32)
         logits, state = self.backend.prefill_fn(prompt[None, :])
         self.stats["prefill_calls"] += 1
         if self.meter is not None:
             self.meter.record_prefill(handle.rid, len(prompt))
-        tok = int(torch.argmax(logits[0].float()).item())
+        tok = self._first_token(handle, logits[0])
         handle._first_logp = float(token_logprob(
             logits[:1], torch.tensor([tok], device=logits.device)).item())
         return tok, state
+
+    @staticmethod
+    def _first_token(handle: StreamHandle, logits_row) -> int:
+        """The prefill-emitted token: first-max argmax for a greedy
+        request; for a sampled one the sampling kernel on the logits'
+        device at RNG counter ``len(tokens)`` (0 on a fresh admission)."""
+        spec = handle.request.sampler
+        if spec is None or spec.is_greedy:
+            return int(torch.argmax(logits_row.float()).item())
+        return sample_token(logits_row, spec, position=len(handle._tokens))
+
+    def wave_accepts(self, sig: tuple) -> bool:
+        """Can a state with this signature join the current wave? Yes
+        when there is no buffer, the signatures match or no slot is
+        active."""
+        return (self.batched is None or self._batched_sig == sig
+                or not self.active_slots())
+
+    def _prepare_wave_buffer(self, sig: tuple, row_shape_of) -> None:
+        """(Re)build the wave buffer for a row signature, or raise if the
+        signature cannot join the in-flight wave. A rebuilt buffer drops
+        the cached waves, whose graphs were captured on the old one."""
+        if (self.batched is None
+                or (self._batched_sig != sig and not self.active_slots())):
+            self.batched = row_shape_of()
+            self._batched_sig = sig
+            self._wave_cache.clear()
+        elif self._batched_sig != sig:
+            raise ValueError(
+                f"state signature {sig} cannot join the in-flight wave "
+                f"(wave signature {self._batched_sig}); mixed quanta need "
+                f"a paged-KV aware scheduler (the reference's "
+                f"OverlapScheduler, a later slice of the port)")
 
     def install(self, slot: int, handle: StreamHandle, first_token: int,
                 state) -> None:
         """Place one prefilled request (a batch-1 state) into a slot and
         emit its first token."""
-        if self.batched is None:
-            self.batched = state.zeros_batch(self.max_batch)
+        self._prepare_wave_buffer(state_signature(state),
+                                  lambda: state.zeros_batch(self.max_batch))
         self.batched.set_row(slot, state)
         rows = SamplerRows.from_specs([handle.request.sampler],
                                       [len(handle._tokens) + 1],
@@ -342,12 +385,22 @@ class ServeSession:
 
     # -- wave execution ---------------------------------------------------
 
-    def _wave_for(self, fn):
-        wave = self._wave_cache.get(id(fn))
+    def _wave_for(self, fn, sampled: bool = False):
+        """The fused wave for a step, cached per ``(id(fn), sampled)``:
+        greedy waves carry no sampling math; the sampled flavor's greedy
+        branch is the same argmax."""
+        key = (id(fn), sampled)
+        wave = self._wave_cache.get(key)
         if wave is None:
-            wave = make_fused_wave(fn)
-            self._wave_cache[id(fn)] = wave
+            wave = make_fused_wave(fn, sampled=sampled)
+            self._wave_cache[key] = wave
         return wave
+
+    def _wave_sampled(self, active: list[int]) -> bool:
+        """True when any active slot needs stochastic selection."""
+        return any(self.slots[s].request.sampler is not None
+                   and not self.slots[s].request.sampler.is_greedy
+                   for s in active)
 
     def step(self) -> int:
         """Admit + one decode wave. Returns tokens produced."""
@@ -371,7 +424,8 @@ class ServeSession:
             desired[s, 0] = self.slots[s].last_token
         tok_in = torch.as_tensor(desired, device=self.device)
         t0 = time.perf_counter() if self.meter is not None else 0.0
-        out = self._wave_for(fn)(self.batched, tok_in, self._sampler_rows)
+        wave = self._wave_for(fn, self._wave_sampled(active))
+        out = wave(self.batched, tok_in, self._sampler_rows)
         next_tok = out.cpu().numpy()[:, 0]
         logps = self._sampler_rows.logp.cpu().numpy()
         self.scheduler.overlap(self)

@@ -1,6 +1,7 @@
 """repro_torch on the GPU: the CUDA kernel vs its plain version on the
-same CUDA tensors, the fused decode step vs the dispatch step, and the
-serving path's captured CUDA graphs vs its eager steps (bitwise).
+same CUDA tensors, the fused decode step vs the dispatch step, the
+serving path's captured CUDA graphs vs its eager steps (bitwise), and the
+sampler's threefry draws on the card vs the CPU's.
 
 Every test here needs a CUDA GPU and skips without one. This file imports
 neither JAX nor the JAX package, so it runs on a machine with only
@@ -13,9 +14,12 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import (flash_attention, ops, quantized_kv,
                                  sectored_attention, vbl_gather)
+from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model
 from repro_torch.runtime import graphs, sectored_decode
-from repro_torch.sample import SamplerRows
+from repro_torch.sample import (SamplerRows, SamplerSpec, kernel, rng,
+                                sample_from_logits)
+from repro_torch.serve import AlwaysDense, Request, ServeSession
 from repro_torch.serve import make_fused_wave
 
 pytestmark = pytest.mark.cuda
@@ -505,3 +509,98 @@ def test_uncapturable_step_raises(gpu):
         assert torch.equal(state, torch.ones(4, device=gpu))
     assert torch.equal(torch.ones(4, device=gpu) * 2,
                        torch.full((4,), 2.0, device=gpu))  # card still fine
+
+
+SEEDS = (0, 1, 3, 2**31, 2**32 - 1)
+POSITIONS = (0, 1, 2, 127, 4095)
+
+
+def test_rng_on_card_bitwise_cpu(gpu):
+    """Keys, 64,000 bits and uniforms per key on the card equal the CPU's
+    (which tests/test_torch_sample.py ties to JAX) bitwise; the Gumbel
+    draws are equal too, or within 4 ulps of max(1, |g|) where the
+    card's log rounds differently."""
+    seeds = torch.tensor(SEEDS).repeat_interleave(len(POSITIONS))
+    pos = torch.tensor(POSITIONS, dtype=torch.int32).repeat(len(SEEDS))
+    cpu = rng.token_key(seeds, pos)
+    card = rng.token_key(seeds.to(gpu), pos.to(gpu))
+    assert torch.equal(card.cpu(), cpu)
+    assert torch.equal(rng.random_bits(card, 64000).cpu(),
+                       rng.random_bits(cpu, 64000))
+    assert torch.equal(rng.uniform(card, 64000).cpu().view(torch.int32),
+                       rng.uniform(cpu, 64000).view(torch.int32))
+    gc, gg = rng.gumbel(cpu, 64000).double(), rng.gumbel(card, 64000)
+    err = (gg.cpu().double() - gc).abs() / gc.abs().clamp_min(1.0)
+    assert float(err.max()) <= 4 * torch.finfo(torch.float32).eps
+
+
+def test_sample_from_logits_card_vs_cpu(gpu):
+    """Tokens drawn on the card equal the CPU's on the same logits, except
+    where the two highest perturbed scores lie within 4 ulps."""
+    gen = torch.Generator().manual_seed(6)
+    specs = [SamplerSpec(temperature=t, top_k=k, top_p=p, seed=s)
+             for t in (0.3, 1.0) for k in (0, 50) for p in (1.0, 0.9)
+             for s in (0, 2**32 - 1)] + [None] * 4
+    logits = torch.randn((len(specs), 64000), generator=gen) * 2.5
+    rows = SamplerRows.from_specs(specs, list(range(len(specs))))
+    cpu = sample_from_logits(logits, rows)
+    card = sample_from_logits(logits.to(gpu), SamplerRows.from_specs(
+        specs, list(range(len(specs))), device=gpu)).cpu()
+    for i in torch.nonzero(cpu != card).flatten().tolist():
+        row = SamplerRows.from_specs([specs[i]], [i])
+        scaled = kernel._mask_top_p(kernel._mask_top_k(
+            logits[i:i + 1] / specs[i].temperature, row.top_k), row.top_p)
+        z = (scaled + rng.gumbel(rng.token_key(row.seed, row.pos),
+                                 64000))[0]
+        top = torch.topk(z, 2).values
+        assert float(top[0] - top[1]) <= 4 * torch.finfo(
+            torch.float32).eps * max(1.0, float(top[0].abs()))
+
+
+def _mixed_specs():
+    return [SamplerSpec(temperature=0.8, top_k=50, top_p=0.9, seed=r)
+            if r % 2 == 0 else None for r in range(4)]
+
+
+def _serve(sess, cfg, specs, lengths, new=6):
+    gen = torch.Generator().manual_seed(9)
+    handles = [sess.submit(Request(
+        r, torch.randint(0, cfg.vocab, (n,), generator=gen).numpy().astype(
+            "int32"), max_new_tokens=new, sampler=s))
+        for r, (n, s) in enumerate(zip(lengths, specs))]
+    sess.run_until_drained()
+    return ([h.peek() for h in handles], [h.logprobs() for h in handles],
+            [t.cpu() for t in graphs.leaves((sess.batched,
+                                             sess._sampler_rows))])
+
+
+@pytest.mark.parametrize("path", ["fused", "dense"])
+def test_sampled_and_greedy_waves_replay_bitwise_eager(gpu, path):
+    """A session whose waves replay captured graphs (the greedy flavor,
+    then the sampled one with greedy and sampled requests sharing it)
+    equals the eager session bitwise: tokens, logprobs, final wave buffer
+    and sampler rows; greedy requests keep their streams."""
+    cfg = configs.get("yi-6b").reduced(**GRAPH_CFG)
+    params = model.init_params(cfg, seed=0, device=gpu)
+    lengths = (126, 127, 300, 383)
+    out = {}
+    for specs_name, specs in (("greedy", [None] * 4),
+                              ("mixed", _mixed_specs())):
+        for g in (True, False):
+            sess = launch_serve.build_session(
+                cfg, params, true_sectored=path == "fused",
+                kernel="fused" if path == "fused" else "dispatch",
+                policy="sectored" if path == "fused" else "dense",
+                seq_len=768, device=gpu, graphs=g)
+            out[specs_name, g] = _serve(sess, cfg, specs, lengths)
+            waves = list(sess._wave_cache.values())
+            assert all(isinstance(w, graphs.CapturedStep) == g
+                       for w in waves)
+            assert [k[1] for k in sess._wave_cache] == [
+                specs_name == "mixed"]
+        (tg, lg, fg), (te, le, fe) = out[specs_name, True], out[
+            specs_name, False]
+        assert tg == te and lg == le
+        assert all(torch.equal(a, b) for a, b in zip(fg, fe))
+    greedy, mixed = out["greedy", True][0], out["mixed", True][0]
+    assert greedy[1] == mixed[1] and greedy[3] == mixed[3]

@@ -12,7 +12,8 @@ path rests on, with an eager stand-in where a capture would be:
 * a session whose wave runs through :class:`CapturedStep` (a stand-in
   graph that replays eagerly) keeps one wave buffer and one set of
   sampler rows for its whole life, gives the reference's greedy streams
-  and stats, and is bitwise the eager session;
+  and stats, and is bitwise the eager session; so are a sampled wave
+  (greedy and sampled requests sharing it) and the dense path's waves;
 * the in-place ``SamplerRows`` operations and the in-place wave equal
   their functional forms;
 * replay launch accounting, through a stand-in counter.
@@ -30,10 +31,12 @@ from repro.runtime import sectored_decode as jsd
 from repro.serve import AlwaysSectored as JAlwaysSectored
 from repro.serve import Request as JRequest
 from repro.serve import ServeSession as JServeSession
+from repro_torch.launch import serve as launch_serve
 from repro_torch.runtime import graphs, sectored_decode
-from repro_torch.sample import SamplerRows
-from repro_torch.serve import (AlwaysSectored, Request, ServeSession,
-                               fused_select_step, make_fused_wave)
+from repro_torch.sample import SamplerRows, SamplerSpec
+from repro_torch.serve import (AlwaysDense, AlwaysSectored, Request,
+                               ServeSession, fused_select_step,
+                               make_fused_wave)
 
 PAGE = sectored_decode.PAGE_SIZE
 SEQ_LEN = 384  # 8 padded pages
@@ -228,6 +231,83 @@ def test_session_on_static_buffers(models, monkeypatch):
             <= LOGPROB_TOL
     _assert_states_equal(sess.batched, eager.batched)
     _assert_states_equal(sess._sampler_rows, eager._sampler_rows)
+
+
+def _sampled_specs():
+    """Requests 0 and 2 sampled, 1 and 3 greedy (``--sample-every 2``)."""
+    return [SamplerSpec(temperature=0.8, top_k=50, top_p=0.9, seed=3 + r)
+            if r % 2 == 0 else None for r in range(4)]
+
+
+def _serve_both_ways(make_session, prompts, specs, max_new=4):
+    """The same requests served eagerly and through the stand-in graph:
+    (eager session, its handles, captured session, its handles); the
+    captured session's wave buffer and rows never move."""
+    runs = []
+    for captured in (False, True):
+        sess = make_session(captured)
+        handles = [sess.submit(Request(r, p, max_new_tokens=max_new,
+                                       sampler=s))
+                   for r, (p, s) in enumerate(zip(prompts, specs))]
+        buffers = []
+        while not sess.idle:
+            sess.step()
+            buffers.append([t.data_ptr() for t in graphs.leaves(
+                (sess.batched, sess._sampler_rows))])
+        assert all(b == buffers[0] for b in buffers)  # never rebound
+        runs += [sess, handles]
+    eager, eager_handles, sess, handles = runs
+    assert all(isinstance(w, StandInCapture)
+               for w in sess._wave_cache.values())
+    for t, e in zip(handles, eager_handles):
+        assert t.peek() == e.peek() and t.logprobs() == e.logprobs()
+        assert len(t.peek()) == max_new
+    _assert_states_equal(sess.batched, eager.batched)
+    _assert_states_equal(sess._sampler_rows, eager._sampler_rows)
+    return eager, eager_handles, sess, handles
+
+
+def test_sampled_wave_on_static_buffers(models, monkeypatch):
+    """A mixed wave (greedy and sampled requests) of the fused sectored
+    backend, replayed through the stand-in graph, is bitwise the eager
+    one; its greedy requests keep the greedy-only session's streams."""
+    _, cfg, _, params = models
+    prompts = [p[:130] for p in _prompts(cfg.vocab)]  # one page crossed
+    prompts.append(prompts[0][::-1].copy())
+
+    def make(captured):
+        return _port_session(cfg, params, monkeypatch if captured else None)
+    _, _, sess, handles = _serve_both_ways(make, prompts, _sampled_specs())
+    assert [key[1] for key in sess._wave_cache] == [True]
+    greedy = make(False)
+    greedy_handles = [greedy.submit(Request(r, p, max_new_tokens=4))
+                      for r, p in enumerate(prompts)]
+    greedy.run_until_drained()
+    assert [key[1] for key in greedy._wave_cache] == [False]
+    for r in (1, 3):
+        assert handles[r].peek() == greedy_handles[r].peek()
+    assert any(handles[r].peek() != greedy_handles[r].peek()
+               for r in (0, 2))
+
+
+def test_dense_session_on_static_buffers(models, monkeypatch):
+    """The dense path's greedy and sampled waves, replayed through the
+    stand-in graph, are bitwise the eager ones (dense prefill stays
+    eager)."""
+    _, cfg, _, params = models
+    prompts = [p[:40 + 9 * i] for i, p in enumerate(_prompts(cfg.vocab))]
+    prompts.append(prompts[0][::-1].copy())
+
+    def make(captured):
+        backend = launch_serve.build_backend(cfg, params, device="cpu")
+        if captured:
+            monkeypatch.setattr(graphs, "CapturedStep", StandInCapture)
+            backend.graphs = backend.decode_fn.graphs = True
+        return ServeSession(backend, max_batch=4, policy=AlwaysDense())
+    for specs in ([None] * 4, _sampled_specs()):
+        _, _, sess, _ = _serve_both_ways(make, prompts, specs)
+        assert len(sess._wave_cache) == 1
+        assert sess.batched.kv.k.shape[2] == 1024
 
 
 def _rows(n=4, seed=0):

@@ -191,9 +191,14 @@ def test_session_rejects_what_is_not_ported(models):
     assert metered.meter is not None and metered.backend.inner is backend
     sess = ServeSession(backend)
     assert sess.meter is None
-    with pytest.raises(NotImplementedError, match="sampling"):
-        sess.submit(Request(0, np.arange(4, dtype=np.int32), 2,
-                            sampler=SamplerSpec(temperature=0.8)))
+    # sampling is ported: a sampled request is served, its first token
+    # drawn at counter 0 and each wave's at the next
+    sampled = sess.submit(Request(0, np.arange(4, dtype=np.int32), 3,
+                                  sampler=SamplerSpec(temperature=0.8,
+                                                      seed=5)))
+    assert sampled.result() and len(sampled.peek()) == 3
+    assert sess._sampler_rows.pos[0] == 3
+    assert list(sess._wave_cache) == [(id(backend.decode_fn), True)]
     for bad in (dict(prompt=np.zeros(0, np.int32)), dict(max_new_tokens=0),
                 dict(stop_tokens=(cfg.vocab,)),
                 dict(stop_tokens=tuple(range(9)))):
@@ -217,3 +222,24 @@ def test_cli_runs_on_cpu(capsys):
     with pytest.raises(SystemExit):
         launch_serve.main(["--arch", "yi-6b", "--fused-kernel", "--device",
                            "cpu"])
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--temperature", "0.8", "--top-p", "0.9", "--seed", "3",
+         "--sample-every", "2"],
+    ["--true-sectored", "--fused-kernel", "--policy", "sectored",
+     "--temperature", "0.8", "--top-k", "50", "--seed", "3",
+     "--sample-every", "2"]], ids=["dense", "dense_sampled",
+                                   "fused_sampled"])
+def test_cli_dense_and_sampled_on_cpu(capsys, extra):
+    stats = launch_serve.main(["--arch", "yi-6b", "--reduced",
+                               "--requests", "3", "--max-new-tokens", "3",
+                               "--device", "cpu", *extra])
+    assert stats["completed"] == 3 and stats["decode_steps"] == 6
+    out = capsys.readouterr().out
+    if "--temperature" in extra:
+        assert "rid=  0 sampler=T=0.8" in out and "rid=  1 sampler=greedy" \
+            in out
+    with pytest.raises(SystemExit):  # a filter without a temperature
+        launch_serve.main(["--arch", "yi-6b", "--top-p", "0.9",
+                           "--device", "cpu"])
