@@ -60,8 +60,32 @@ one JSON line:
    reference's int8 gate (fused_q8 vs dispatch logprob error
    <= LOGPROB_TOL, teacher-forced) on the reduced config it is defined
    for;
-4. cli — ``repro_torch.launch.serve.main`` once (reduced config,
-   ``--telemetry``: it prints the energy table).
+3b. the serving layer at full width, metered, graphs on —
+   ``batch_invariance``: one exact step for the same row at batch 1 and
+   at batch 4, bitwise or its largest differences;
+   ``serve_layer_exact`` (leg A, ``AlwaysDense`` over the fused backend,
+   4 prompts of one shared page plus distinct tails, 24 new tokens across
+   the 256-token boundary): FIFO without a pool (the oracle), overlap
+   with a preempting page pool, and overlap with the pool, a prefix cache
+   and the flight recorder; every request bitwise the oracle's before its
+   first preemption and after it too when the card is batch-invariant,
+   else parting only at a near tie (TIE_ULPS) with logprobs within
+   LOGIT_TOL; the cold run preempts, the warm one hits 3 times, preempts
+   less and meters fewer prefill joules;
+   ``serve_layer_fused`` (leg B, the fused kernel under ``AlwaysSectored``,
+   6 prompts of 4 shared pages plus distinct tails, half sampled, 24 new
+   tokens across the 768-token boundary, overlap, pool, cache): served
+   with the recorder (and command timelines) on and off, tokens,
+   logprobs, per-request joules and ``dram_ns`` and the meter's totals
+   bitwise equal, each meter equal to the host replay of the schedule it
+   was driven with (resumed and warm prefills included), the paged kernel
+   launched n_layers times a wave; cold and warm prefill device ms, wave
+   ms, hits, preemptions, peak memory and the Perfetto file's size;
+4. cli — ``repro_torch.launch.serve.main`` (reduced config): with
+   ``--telemetry`` (it prints the energy table); with the serving layer's
+   flags (``--scheduler overlap --kv-pages --prefix-cache --shared-prefix
+   --obs --obs-commands --engine looped``), which must preempt; the dense
+   path sampling.
 
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -607,22 +631,54 @@ def ops_times(torch, ops, sa, vg, fa, hm, vbl_in, flash_in):
 # -- phase 3: the main path ----------------------------------------------------
 
 
-def schedule_meter(meters, geometry, prompt_lengths, k_per_wave, *,
-                   sectored_hw=True):
-    """A fresh ``meters.WaveMeter`` driven on the host with the schedule a
-    FIFO session runs when every request is admitted before the first wave
-    and none stops early: each prompt's prefill in request order, then one
-    wave per entry of ``k_per_wave`` (the pages a slot fetches, probe
-    included; None for a dense wave), request r in slot r at position
-    ``len(prompt_r) + w`` in wave w."""
+def schedule_meter(meters, geometry, prompt_lengths=(), k_per_wave=(), *,
+                   sectored_hw=True, events=None):
+    """A fresh ``meters.WaveMeter`` driven on the host with a schedule; no
+    device value enters.
+
+    By default the schedule a FIFO session runs when every request is
+    admitted before the first wave and none stops early: each prompt's
+    prefill in request order, then one wave per entry of ``k_per_wave``
+    (the pages a slot fetches, probe included; None for a dense wave),
+    request r in slot r at position ``len(prompt_r) + w`` in wave w.
+    ``events`` gives any other schedule instead, as logged by
+    :func:`log_schedule`: ``("prefill", kwargs of record_prefill)``
+    (resumed and warm ``cached_tokens`` prefills included) and
+    ``("wave", kwargs of record_wave)``, in order."""
+    if events is None:
+        events = [("prefill", dict(rid=rid, prompt_len=n))
+                  for rid, n in enumerate(prompt_lengths)]
+        events += [("wave", dict(
+            sectored=k is not None, k_pages=k,
+            slots=[(rid, rid, n + w)
+                   for rid, n in enumerate(prompt_lengths)]))
+            for w, k in enumerate(k_per_wave)]
     m = meters.WaveMeter(geometry, sectored_hw=sectored_hw)
-    for rid, n in enumerate(prompt_lengths):
-        m.record_prefill(rid, n)
-    for w, k in enumerate(k_per_wave):
-        m.record_wave(sectored=k is not None, k_pages=k,
-                      slots=[(rid, rid, n + w)
-                             for rid, n in enumerate(prompt_lengths)])
+    for kind, kwargs in events:
+        if kind == "prefill":
+            m.record_prefill(**kwargs)
+        else:
+            m.record_wave(**kwargs)
     return m
+
+
+def log_schedule(meter):
+    """Wrap ``meter``'s ``record_prefill`` and ``record_wave`` so every
+    call's schedule (not its wall time or table views) is logged as a
+    :func:`schedule_meter` event; returns the list."""
+    events = []
+    prefill, wave = meter.record_prefill, meter.record_wave
+
+    def record_prefill(rid, prompt_len, **kw):
+        events.append(("prefill", dict(rid=rid, prompt_len=prompt_len, **kw)))
+        return prefill(rid, prompt_len, **kw)
+
+    def record_wave(**kw):
+        events.append(("wave", {k: v for k, v in kw.items()
+                                if k not in ("wall_s", "state_views")}))
+        return wave(**kw)
+    meter.record_prefill, meter.record_wave = record_prefill, record_wave
+    return events
 
 
 class LoggedPolicy:
@@ -1490,6 +1546,397 @@ def main_path(torch, np, sa, launch_serve, cfg, params, card):
     return records, launches
 
 
+# -- phase 3b: the rest of the serving layer -------------------------------------
+
+# leg A (exact path): 4 prompts of one shared page plus distinct tails,
+# 24 new tokens each, so every request grows across the 256-token page
+# boundary; the pool preempts the cold overlap run
+LEG_A = dict(shared=128, tails=(108, 110, 112, 114), new=24, pool_pages=11,
+             cache_pages=2)
+# leg B (fused kernel, AlwaysSectored): 6 prompts of 4 shared pages plus
+# distinct tails above the k = 4 budget, half of them sampled, 24 new
+# tokens across the 768-token boundary; overlap, pool, cache, recorder
+LEG_B = dict(shared=512, tails=(246, 248, 250, 252, 254, 256), new=24,
+             pool_pages=16, cache_pages=12)
+# streams that part after a resume when the card is not batch-invariant
+# may part only where the two tokens' logits (batch-1 recomputation) are
+# the top two and within this many bf16 ulps
+TIE_ULPS = 2
+
+
+def layer_prompts(np, vocab, leg, seed):
+    rng = np.random.default_rng(seed)
+    common = rng.integers(0, vocab, leg["shared"]).astype(np.int32)
+    return [np.concatenate([common,
+                            rng.integers(0, vocab, t).astype(np.int32)])
+            for t in leg["tails"]]
+
+
+def device_timer(torch, dev, spans):
+    """Wrap a callable so each call's device time is kept in ``spans``:
+    a pair of CUDA events around it on the card (no host sync; read
+    after the run), the host clock on the CPU."""
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            if dev != "cuda":
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                spans.append((time.perf_counter() - t0) * 1e3)
+                return out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((start, end))
+            return out
+        return timed
+    return wrap
+
+
+def span_ms(spans):
+    return [s if isinstance(s, float) else s[0].elapsed_time(s[1])
+            for s in spans]
+
+
+def layer_run(torch, np, sa, launch_serve, cfg, params, leg, *, kernel,
+              policy, scheduler, pool, cache, obs, specs, dev, seq_len):
+    """Serve a leg's prompts through ``build_session`` (metered, graphs on
+    the card) and return the record: streams, stats, the meter's report
+    and the schedule it was driven with, each prompt's prefill device ms
+    (cold through ``prefill_fn``, warm through ``suffix_prefill``), each
+    wave's device ms, preemption points, paged launches, peak memory."""
+    from repro_torch.serve import KVPagePool, PrefixCache, Request
+    sess = launch_serve.build_session(
+        cfg, params, true_sectored=True, kernel=kernel, policy=policy,
+        seq_len=seq_len, max_batch=4, device=dev, telemetry=True,
+        scheduler=scheduler,
+        page_pool=KVPagePool(leg["pool_pages"]) if pool else None,
+        prefix_cache=PrefixCache(leg["cache_pages"]) if cache else None,
+        obs=obs)
+    backend = sess.backend.inner
+    events = log_schedule(sess.meter)
+    cold, warm, waves = [], [], []
+    backend.prefill_fn = device_timer(torch, dev, cold)(backend.prefill_fn)
+    sess._suffix_prefill = device_timer(torch, dev, warm)(
+        sess._suffix_prefill)
+    wave_for = sess._wave_for
+    sess._wave_for = lambda fn, sampled=False: device_timer(
+        torch, dev, waves)(wave_for(fn, sampled))
+    preempted = []  # (rid, tokens kept) at each preemption
+    preempt = sess._preempt
+
+    def logged_preempt(slot):
+        h = sess.slots[slot]
+        preempted.append((h.rid, len(h._tokens)))
+        return preempt(slot)
+    sess._preempt = logged_preempt
+    prompts = layer_prompts(np, cfg.vocab, leg, seed=3)
+    handles = [sess.submit(Request(rid, p, max_new_tokens=leg["new"],
+                                   sampler=specs[rid]))
+               for rid, p in enumerate(prompts)]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    sa.reset_launches()
+    t0 = time.perf_counter()
+    sess.run_until_drained()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    report = sess.meter.report()
+    wave_ms = span_ms(waves)
+    cache_obj = sess.prefix_cache
+    rec = dict(
+        scheduler=scheduler, pool=pool, cache=cache, obs=obs is not None,
+        stats=dict(sess.stats), total_s=total_s,
+        tokens=[h.peek() for h in handles],
+        logprobs=[h.logprobs() for h in handles],
+        request_energy_j=[h.energy_j for h in handles],
+        request_dram_ns=[h.telemetry["dram_ns"] for h in handles],
+        preempted=preempted,
+        cache_stats=(dict(cache_obj.stats) if cache_obj is not None
+                     else None),
+        pool_peak_pages=sess.page_pool.peak_pages if pool else None,
+        meter={k: report[k] for k in (
+            "energy_j", "dram_ns", "prefill_dram_ns", "prefill_j", "tokens",
+            "prefix_hit_tokens", "resumed_prefills", "overlapped_prefills",
+            "audit_checks", "audit_max_rel_err")},
+        cold_prefill_ms=span_ms(cold), warm_prefill_ms=span_ms(warm),
+        wave_ms_median_2_n=(statistics.median(wave_ms[1:])
+                            if len(wave_ms) > 1 else None),
+        wave_ms_first=wave_ms[0] if wave_ms else None,
+        launches=dict(sa.launches),
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if dev == "cuda" else None))
+    from repro_torch.telemetry import meters
+    host = schedule_meter(meters, backend.kv_geometry(), events=events,
+                          sectored_hw=sess.meter.sectored_hw).report()
+    rec["host_replay_equal"] = {k: report[k] == host[k] for k in (
+        "energy_j", "dram_ns", "prefill_dram_ns", "prefill_j", "tokens")}
+    rec["schedule_events"] = dict(
+        prefills=sum(k == "prefill" for k, _ in events),
+        resumed=sum(k == "prefill" and e.get("resumed") for k, e in events),
+        warm=sum(k == "prefill" and e.get("cached_tokens", 0) > 0
+                 for k, e in events),
+        waves=sum(k == "wave" for k, _ in events))
+    if not all(h.done and len(h.peek()) == leg["new"] for h in handles):
+        fail(f"serving-layer run {scheduler}/{pool}/{cache}: not every "
+             f"request completed: {rec['stats']}")
+    if not all(rec["host_replay_equal"].values()):
+        fail(f"the meter differs from the host replay of its schedule: "
+             f"{rec['host_replay_equal']}")
+    if not (report["audit_checks"] > 0
+            and report["audit_max_rel_err"] <= AUDIT_TOL):
+        fail(f"energy audit: {report['audit_checks']} checks, max rel err "
+             f"{report['audit_max_rel_err']}")
+    return sess, rec
+
+
+def batch_invariance(torch, np, launch_serve, cfg, params, dev, seq_len,
+                     prompts, steps=3):
+    """Exact decode steps of the same states at batch 1 and at batch 4
+    (the prefill's step and the wave's; eagerly, which is bitwise their
+    graphs): the leg's prompts prefilled into the 4 slots, ``steps``
+    steps of the batch (each fed its own argmax), and each slot's step
+    alone from the same state. Bitwise equal in logits, the appended K/V
+    row and the chosen token's logprob for every slot and step, or the
+    largest differences. A bf16 output hides most last-bit differences
+    of the f32 sums behind it, so one equal step proves little."""
+    from repro_torch.sample import token_logprob
+    backend = launch_serve.build_backend(cfg, params, true_sectored=True,
+                                         seq_len=seq_len, kernel="fused",
+                                         device=dev)
+    rows = [backend.prefill_fn(p[None]) for p in prompts]
+    big = rows[0][1].zeros_batch(len(rows))
+    for slot, (_, state) in enumerate(rows):
+        big.set_row(slot, state)
+    exact = backend._step_for(backend.pages)
+    token = torch.stack([torch.argmax(lg[0].float()) for lg, _ in rows])
+    out = dict(prompt_lengths=[len(p) for p in prompts], steps=steps,
+               compared=0, bitwise_steps=0, logit_max_abs_diff=0.0,
+               kv_row_max_abs_diff=0.0, logprob_max_abs_diff=0.0)
+    for _ in range(steps):
+        token = token.to(torch.int32).reshape(-1, 1)
+        before = big.clone()
+        l4 = exact.step_(big, token)
+        tok = torch.argmax(l4.float(), dim=-1)
+        lp4 = token_logprob(l4, tok)
+        for slot in range(len(rows)):
+            one = before.row(slot).clone()
+            n = int(one.kv.length[0, 0])
+            l1 = exact.step_(one, token[slot:slot + 1])
+            lp1 = token_logprob(l1, tok[slot:slot + 1])[0]
+            kv = max(float((a[:, 0, n].float() - b[:, slot, n].float())
+                           .abs().max())
+                     for a, b in ((one.kv.k, big.kv.k),
+                                  (one.kv.v, big.kv.v)))
+            logit = float((l1[0].float() - l4[slot].float()).abs().max())
+            lp = float((lp1 - lp4[slot]).abs())
+            out["compared"] += 1
+            out["bitwise_steps"] += logit == 0.0 and kv == 0.0 and lp == 0.0
+            out["logit_max_abs_diff"] = max(out["logit_max_abs_diff"], logit)
+            out["kv_row_max_abs_diff"] = max(out["kv_row_max_abs_diff"], kv)
+            out["logprob_max_abs_diff"] = max(out["logprob_max_abs_diff"],
+                                              lp)
+        token = tok
+    out["bitwise"] = out["bitwise_steps"] == out["compared"]
+    return out
+
+
+def tie_check(torch, np, backend, prompt, tokens_a, tokens_b, p):
+    """Where two streams of one request part at position p: the logits
+    of position p from a batch-1 re-prefill over ``prompt +
+    tokens_a[:p]``; the parting is a near tie when the two tokens are its
+    top two and lie within TIE_ULPS bf16 ulps."""
+    ctx = np.concatenate([prompt, np.asarray(tokens_a[:p], np.int32)])
+    logits, _ = backend.prefill_fn(ctx[None])
+    row = logits[0].float()
+    a, b = int(tokens_a[p]), int(tokens_b[p])
+    top = set(torch.topk(row, 2).indices.tolist())
+    gap = float((row[a] - row[b]).abs())
+    big = float(max(row[a].abs(), row[b].abs()))
+    ulp = 2.0 ** (math.floor(math.log2(big)) - 7) if big > 0 else 2.0 ** -133
+    return dict(position=p, tokens=[a, b], gap=gap, ulps=gap / ulp,
+                near_tie=top == {a, b} and gap <= TIE_ULPS * ulp)
+
+
+def compare_to_oracle(torch, np, backend, prompts, oracle, run, invariant):
+    """Each request of ``run`` against the uncontended ``oracle``: bitwise
+    before its first preemption; after it bitwise when the card is
+    batch-invariant, else tokens may part only at a near tie
+    (:func:`tie_check`) and logprobs within LOGIT_TOL until then."""
+    first = {}
+    for rid, kept in run["preempted"]:
+        first.setdefault(rid, kept)
+    out = []
+    for rid, prompt in enumerate(prompts):
+        ta, tb = oracle["tokens"][rid], run["tokens"][rid]
+        la, lb = oracle["logprobs"][rid], run["logprobs"][rid]
+        cut = first.get(rid, len(ta))
+        row = dict(rid=rid, preempted_at=first.get(rid),
+                   before_bitwise=ta[:cut] == tb[:cut] and la[:cut] == lb[:cut],
+                   after_bitwise=ta[cut:] == tb[cut:] and la[cut:] == lb[cut:])
+        row["ok"] = row["before_bitwise"] and (row["after_bitwise"]
+                                               or not invariant)
+        if not row["after_bitwise"] and not invariant:
+            p = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y),
+                     len(ta))
+            row["logprob_max_abs_diff"] = max(
+                [0.0] + [abs(x - y) for x, y in zip(la[:p], lb[:p])])
+            row["ok"] = row["ok"] and row["logprob_max_abs_diff"] <= LOGIT_TOL
+            if p < len(ta):
+                row["parting"] = tie_check(torch, np, backend, prompt, ta,
+                                           tb, p)
+                row["ok"] = row["ok"] and row["parting"]["near_tie"]
+        out.append(row)
+    return out
+
+
+def serve_layer_exact(torch, np, sa, launch_serve, cfg, params, card,
+                      dev="cuda", seq_len=2048):
+    """Leg A: the exact path (``AlwaysDense`` over the fused backend) in
+    three sessions — FIFO with no pool (the oracle), overlap with a
+    preempting pool, and overlap with the pool, a prefix cache and the
+    recorder — held bitwise (or to the near-tie rule after a resume, when
+    the card is not batch-invariant), the warm run's prefill joules below
+    the oracle's."""
+    from repro_torch.obs import FlightRecorder
+    leg = LEG_A
+    prompts = layer_prompts(np, cfg.vocab, leg, seed=3)
+    invariance = batch_invariance(torch, np, launch_serve, cfg, params, dev,
+                                  seq_len, prompts)
+    emit(dict(phase="batch_invariance", card=card, **invariance))
+    specs = [None] * len(leg["tails"])
+    runs = {}
+    for name, scheduler, pool, cache, obs in (
+            ("fifo", "fifo", False, False, None),
+            ("overlap_pool", "overlap", True, False, None),
+            ("overlap_pool_cache_obs", "overlap", True, True,
+             FlightRecorder())):
+        sess, rec = layer_run(torch, np, sa, launch_serve, cfg, params, leg,
+                              kernel="fused", policy="dense",
+                              scheduler=scheduler, pool=pool, cache=cache,
+                              obs=obs, specs=specs, dev=dev, seq_len=seq_len)
+        runs[name] = rec
+        if name == "fifo":
+            oracle_backend = sess.backend.inner
+        else:
+            del sess
+    oracle, cold, warm = (runs[k] for k in ("fifo", "overlap_pool",
+                                            "overlap_pool_cache_obs"))
+    cmp = {name: compare_to_oracle(torch, np, oracle_backend, prompts,
+                                   oracle, runs[name],
+                                   invariance["bitwise"])
+           for name in ("overlap_pool", "overlap_pool_cache_obs")}
+    del oracle_backend
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out = dict(
+        phase="serve_layer_exact", card=card, leg=leg,
+        batch_invariance=invariance, compare=cmp,
+        preemptions={k: r["stats"]["preemptions"] for k, r in runs.items()},
+        overlapped_prefills={k: r["stats"]["overlapped_prefills"]
+                             for k, r in runs.items()},
+        cache_stats=warm["cache_stats"],
+        prefill_j={k: r["meter"]["prefill_j"] for k, r in runs.items()},
+        energy_j={k: r["meter"]["energy_j"] for k, r in runs.items()},
+        audit_max_rel_err={k: r["meter"]["audit_max_rel_err"]
+                           for k, r in runs.items()},
+        cold_prefill_ms={k: r["cold_prefill_ms"] for k, r in runs.items()},
+        warm_prefill_ms=warm["warm_prefill_ms"],
+        wave_ms_median_2_n={k: r["wave_ms_median_2_n"]
+                            for k, r in runs.items()},
+        total_s={k: r["total_s"] for k, r in runs.items()},
+        peak_mem_gb={k: r["peak_mem_gb"] for k, r in runs.items()},
+        schedule_events={k: r["schedule_events"] for k, r in runs.items()},
+        pool_peak_pages={k: r["pool_peak_pages"] for k, r in runs.items()})
+    emit(out)
+    checks = dict(
+        streams=all(r["ok"] for rows in cmp.values() for r in rows),
+        cold_preempts=cold["stats"]["preemptions"] >= 1,
+        warm_hits=warm["cache_stats"]["hits"] == 3,
+        warm_preempts_less=(warm["stats"]["preemptions"]
+                            < cold["stats"]["preemptions"]),
+        overlapped=cold["stats"]["overlapped_prefills"] > 0,
+        warm_prefill_j_below=(warm["meter"]["prefill_j"]
+                              < oracle["meter"]["prefill_j"]))
+    if not all(checks.values()):
+        fail(f"serve_layer_exact: {checks}")
+    return out
+
+
+def serve_layer_fused(torch, np, sa, launch_serve, cfg, params, card,
+                      dev="cuda", seq_len=2048):
+    """Leg B: the main path with everything on — the fused kernel under
+    ``AlwaysSectored``, overlap, pool, prefix cache, half the requests
+    sampled — served with the recorder on and off: streams, per-request
+    joules and ``dram_ns`` and the meter's totals bitwise equal, each
+    meter equal to the host replay of its schedule, the paged kernel
+    launched once per layer per wave. Returns (record, paged launches of
+    the two runs)."""
+    from repro_torch.obs import FlightRecorder, write_perfetto
+    from repro_torch.sample import SamplerSpec
+    leg = LEG_B
+    specs = [SamplerSpec(seed=rid, **SAMPLED) if rid % 2 else None
+             for rid in range(len(leg["tails"]))]
+    runs, obs = {}, FlightRecorder(commands=True)
+    # off first: the recorder keeps its session (and its memory) alive
+    for name, recorder in (("obs_off", None), ("obs_on", obs)):
+        sess, rec = layer_run(torch, np, sa, launch_serve, cfg, params, leg,
+                              kernel="fused", policy="sectored",
+                              scheduler="overlap", pool=True, cache=True,
+                              obs=recorder, specs=specs, dev=dev,
+                              seq_len=seq_len)
+        runs[name] = rec
+        del sess
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    on, off = runs["obs_on"], runs["obs_off"]
+    path = ROOT / "build" / "chip_smoke" / "serve_layer_fused.perfetto.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_perfetto(obs.spans(), path, commands=obs.command_records)
+    same = {k: on[k] == off[k] for k in (
+        "tokens", "logprobs", "request_energy_j", "request_dram_ns",
+        "meter", "stats")}
+    want = {name: cfg.n_layers * r["stats"]["sectored_waves"]
+            for name, r in runs.items()}
+    launches = {name: r["launches"]["bf16"] for name, r in runs.items()}
+    out = dict(
+        phase="serve_layer_fused", card=card, leg=leg,
+        specs=[s.describe() if s else "greedy" for s in specs],
+        observer_effect_free=same, launches=launches,
+        launches_want=want, stats=on["stats"], cache_stats=on["cache_stats"],
+        pool_peak_pages=on["pool_peak_pages"],
+        schedule_events=on["schedule_events"],
+        host_replay_equal={k: r["host_replay_equal"]
+                           for k, r in runs.items()},
+        meter=on["meter"], preempted=on["preempted"],
+        cold_prefill_ms={k: r["cold_prefill_ms"] for k, r in runs.items()},
+        warm_prefill_ms={k: r["warm_prefill_ms"] for k, r in runs.items()},
+        wave_ms_median_2_n={k: r["wave_ms_median_2_n"]
+                            for k, r in runs.items()},
+        wave_ms_first={k: r["wave_ms_first"] for k, r in runs.items()},
+        total_s={k: r["total_s"] for k, r in runs.items()},
+        peak_mem_gb={k: r["peak_mem_gb"] for k, r in runs.items()},
+        perfetto_bytes=path.stat().st_size, spans=len(obs.spans()),
+        command_records=len(obs.command_records),
+        obs_snapshot={k: v for k, v in obs.snapshot().items()
+                      if not isinstance(v, dict)})
+    emit(out)
+    checks = dict(
+        observer_effect_free=all(same.values()),
+        launches=(launches == want if dev == "cuda"
+                  else all(n == 0 for n in launches.values())),
+        sectored=on["stats"]["sectored_waves"] == on["stats"]["waves"] > 0,
+        hits=on["cache_stats"]["hits"] > 0,
+        preempted=on["stats"]["preemptions"] > 0,
+        resumed=on["schedule_events"]["resumed"] > 0)
+    if not all(checks.values()):
+        fail(f"serve_layer_fused: {checks}")
+    return out, sum(launches.values())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -1557,6 +2004,17 @@ def main(argv=None) -> int:
         path_records, launches = main_path(torch, np, sa, launch_serve, cfg,
                                            params, card)
         records += path_records
+        t0 = time.perf_counter()
+        records.append(serve_layer_exact(torch, np, sa, launch_serve, cfg,
+                                         params, card))
+        torch.cuda.empty_cache()
+        leg_b, leg_b_launches = serve_layer_fused(torch, np, sa, launch_serve,
+                                                  cfg, params, card)
+        records.append(leg_b)
+        launches["bf16"] += leg_b_launches
+        records.append(dict(phase="serve_layer_seconds",
+                            seconds=time.perf_counter() - t0))
+        emit(records[-1])
         del params
         torch.cuda.empty_cache()
         records.append(q8_reduced_check(torch, np, configs, model,
@@ -1573,6 +2031,28 @@ def main(argv=None) -> int:
         emit(cli)
         if stats["completed"] != 4 or sa.launches["bf16"] == 0:
             fail(f"CLI run: {stats}, launches {sa.launches}")
+        # the serving layer as the CLI drives it: overlap, pool, prefix
+        # cache, recorder with command timelines, the looped wave
+        trace = ROOT / "build" / "chip_smoke" / "cli_serving_layer.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        sa.reset_launches()
+        stats = launch_serve.main([
+            "--arch", "yi-6b", "--reduced", "--requests", "6",
+            "--max-new-tokens", "8", "--max-batch", "4", "--true-sectored",
+            "--fused-kernel", "--policy", "sectored", "--telemetry",
+            "--scheduler", "overlap", "--kv-pages", "7", "--kv-page-size",
+            "16", "--prefix-cache", "--shared-prefix", "32", "--obs",
+            "--obs-commands", "--obs-perfetto-out", str(trace), "--engine",
+            "looped", "--device", "cuda"])
+        records.append(dict(phase="cli_serving_layer", stats=stats,
+                            launches=dict(sa.launches),
+                            perfetto_bytes=trace.stat().st_size))
+        emit(records[-1])
+        # (a looped wave is read before the scheduler's overlap runs, so
+        # it counts no overlapped prefill, as in the reference)
+        if (stats["completed"] != 6 or stats["preemptions"] == 0
+                or sa.launches["bf16"] == 0):
+            fail(f"serving-layer CLI run: {stats}, launches {sa.launches}")
         # the dense path with sampling, as the CLI runs it
         stats = launch_serve.main([
             "--arch", "yi-6b", "--reduced", "--requests", "4",
@@ -1591,8 +2071,9 @@ def main(argv=None) -> int:
             name=f"sectored_attention_paged_{flavor}", route="cuda",
             source=KERNEL_SOURCE, replaces=TPU_KERNEL,
             path=("serving main path, CUDA graph replays: the greedy "
-                  "fused leg and the two sampled graph legs" if flavor ==
-                  "bf16" else "serving main path, CUDA graph replays"),
+                  "fused leg, the two sampled graph legs and the two "
+                  "serve_layer_fused runs" if flavor == "bf16"
+                  else "serving main path, CUDA graph replays"),
             launches=launches[flavor], max_abs_err=worst[flavor],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))

@@ -29,12 +29,24 @@ rest stay greedy and share its waves) with ``--top-k`` / ``--top-p`` and
 the seed ``--seed + rid``, printed as a provenance column; the sampler
 runs on the device inside the wave.
 
+``--scheduler overlap`` prefills queued prompts while the decode wave is
+in flight (``overlapped_prefills`` counts them) with paged-KV admission;
+``--engine looped`` runs the per-slot reference wave. ``--kv-pages N``
+bounds the resident KV pages (``--kv-page-size`` tokens each): admission
+waits when the pool is full and growth preempts the youngest requests,
+which resume by re-prefill. ``--prefix-cache`` (needs
+``--true-sectored``) seeds admissions from earlier prompts' cached
+states and prefills only the suffix; ``--shared-prefix N`` prepends N
+common tokens to every prompt so it hits. ``--obs`` attaches the flight
+recorder (spans on the virtual step clock, a metrics table at the end),
+``--obs-trace-out`` / ``--obs-perfetto-out`` export its spans as JSONL /
+Perfetto JSON, and ``--obs-commands`` (with ``--telemetry``) adds each
+metered wave's DRAM command timeline.
+
 Runs on the GPU, where decode waves (and the sectored prefill steps)
 replay captured CUDA graphs, unless ``--device cpu`` is given; the dense
 prefill runs eagerly, its shapes following the prompt. Parameters are
-random, from a seeded generator. The overlap scheduler, the page pool,
-the prefix cache, the flight recorder and the mesh are later slices of
-the port.
+random, from a seeded generator. The mesh is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -48,12 +60,15 @@ from repro_torch import configs
 from repro_torch.core import metrics
 from repro_torch.kernels import backend as kbackend
 from repro_torch.models import model
+from repro_torch.obs import (FlightRecorder, MetricsRegistry, write_jsonl,
+                             write_perfetto)
 from repro_torch.runtime import sectored_decode
 from repro_torch.runtime.graphs import Step
 from repro_torch.sample import SamplerSpec
 from repro_torch.serve import (AdaptiveSectorPolicy, AlwaysDense,
                                AlwaysSectored, FifoScheduler,
-                               HysteresisPolicy, Request, ServeSession,
+                               HysteresisPolicy, KVPagePool, OverlapScheduler,
+                               PrefixCache, Request, ServeSession,
                                ServingBackend)
 from repro_torch.telemetry import MeteredBackend
 from repro_torch.telemetry.meters import KVGeometry
@@ -88,7 +103,7 @@ class DenseBackend(ServingBackend):
             return model.decode_step_(params, cfg, state, token)
         decode = Step(step_, graphs=self.graphs, pool=self.pool)
         super().__init__(self._prefill, decode, decode if sectored else None,
-                         vocab=cfg.vocab)
+                         vocab=cfg.vocab, device=self.device)
 
     def _prefill(self, tokens):
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,
@@ -147,10 +162,8 @@ def build_session(cfg, params, *, max_batch=4, sectored=True,
     """A ServeSession over the port's backend, on ``device`` (None = GPU).
     On the GPU its waves and prefill replay captured CUDA graphs;
     ``graphs=False`` runs them eagerly. ``telemetry`` (implied by
-    ``policy="adaptive"``) meters the backend."""
-    if scheduler != "fifo":
-        raise NotImplementedError(
-            f"scheduler {scheduler!r}: only fifo is ported yet")
+    ``policy="adaptive"``) meters the backend; ``scheduler`` is "fifo" or
+    "overlap"; ``vectorized=False`` runs the looped wave."""
     if mesh is not None:
         raise NotImplementedError("the mesh is a later slice of the port")
     backend = build_backend(cfg, params, sectored=sectored,
@@ -172,10 +185,11 @@ def build_session(cfg, params, *, max_batch=4, sectored=True,
         pol = build_policy(policy, backend.meter.recorder)
     else:
         pol = build_policy(policy)
-    return ServeSession(backend, max_batch=max_batch,
-                        scheduler=FifoScheduler(), policy=pol,
-                        vectorized=vectorized, page_pool=page_pool,
-                        prefix_cache=prefix_cache, obs=obs)
+    sched = OverlapScheduler() if scheduler == "overlap" else FifoScheduler()
+    return ServeSession(backend, max_batch=max_batch, scheduler=sched,
+                        policy=pol, vectorized=vectorized,
+                        page_pool=page_pool, prefix_cache=prefix_cache,
+                        obs=obs)
 
 
 def main(argv=None):
@@ -185,6 +199,14 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--engine", choices=["vectorized", "looped"],
+                    default="vectorized",
+                    help="vectorized: one wave over all slots; looped: the "
+                         "per-slot reference wave")
+    ap.add_argument("--scheduler", choices=["fifo", "overlap"],
+                    default="fifo",
+                    help="fifo: blocking admission; overlap: prefill "
+                         "double-buffered against the in-flight wave")
     ap.add_argument("--true-sectored", action="store_true",
                     help="serve on SectoredState (exact/top-k paths + "
                          "shared-prefix demand merge)")
@@ -204,6 +226,22 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None,
                     help="with --telemetry: dump the per-wave trace JSONL "
                          "here")
+    ap.add_argument("--obs", action="store_true",
+                    help="attach the flight recorder: per-request span "
+                         "tracing on the virtual step clock plus a serving "
+                         "metrics table at the end (token streams, "
+                         "logprobs and joules are the same with it on or "
+                         "off)")
+    ap.add_argument("--obs-trace-out", default=None, metavar="PATH",
+                    help="with --obs: export the span trace as JSONL")
+    ap.add_argument("--obs-perfetto-out", default=None, metavar="PATH",
+                    help="with --obs: export the span trace as Chrome/"
+                         "Perfetto trace_event JSON")
+    ap.add_argument("--obs-commands", action="store_true",
+                    help="with --obs and --telemetry: record every metered "
+                         "wave's and prefill's DRAM command timeline; the "
+                         "Perfetto export grows a 'dram commands' track and "
+                         "--obs-trace-out a sibling .commands.jsonl file")
     ap.add_argument("--bg-energy", action="store_true",
                     help="with --telemetry: add the modeled background/"
                          "refresh energy component (derived from the "
@@ -225,6 +263,24 @@ def main(argv=None):
                     metavar="ID", dest="stop_tokens",
                     help="EOS contract: a request finishes the moment it "
                          "emits this token id (repeatable, up to 8)")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="KV page pool capacity (pages); admission waits "
+                         "when full and growth preempts the youngest "
+                         "requests, which resume by re-prefill. Default: "
+                         "unbounded")
+    ap.add_argument("--kv-page-size", type=int, default=None,
+                    help="tokens per pool page (default: the sectored "
+                         "runtime's page of 128)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="cross-request radix prefix cache: seed admissions "
+                         "from earlier prompts' cached states and prefill "
+                         "only the suffix (needs --true-sectored)")
+    ap.add_argument("--prefix-cache-pages", type=int, default=64,
+                    help="prefix cache capacity in KV pages (LRU over "
+                         "unreferenced entries; default 64)")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="prepend N common tokens to every prompt so "
+                         "--prefix-cache hits (0 = independent prompts)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -236,12 +292,31 @@ def main(argv=None):
         # decode greedy: refuse instead of faking a sampling run
         ap.error("--top-k/--top-p/--seed/--sample-every need "
                  "--temperature > 0 (temperature 0 is greedy decoding)")
+    if (args.obs_trace_out or args.obs_perfetto_out) and not args.obs:
+        ap.error("--obs-trace-out/--obs-perfetto-out need --obs (there is "
+                 "no span trace to export without the flight recorder)")
+    if args.obs_commands and not args.obs:
+        ap.error("--obs-commands needs --obs (the command track rides on "
+                 "the flight recorder)")
+    if args.obs_commands and not (args.telemetry
+                                  or args.policy == "adaptive"):
+        ap.error("--obs-commands needs --telemetry (the command timeline "
+                 "is synthesized from the meter's counters)")
+    if args.kv_page_size is not None and args.kv_pages is None:
+        ap.error("--kv-page-size needs --kv-pages (an unbounded pool has "
+                 "no page granularity to configure)")
     if args.kv_quant and not args.fused_kernel:
         ap.error("--kv-quant needs --fused-kernel (dequant runs inside "
                  "the fused kernel; the dispatch path reads full-width)")
     if args.fused_kernel and not args.true_sectored:
         ap.error("--fused-kernel needs --true-sectored (the dense backend "
                  "has no paged KV for the kernel to steer)")
+    if args.prefix_cache and not args.true_sectored:
+        ap.error("--prefix-cache needs --true-sectored (the dense backend "
+                 "has no prefix-seeding hooks)")
+    if args.shared_prefix and not args.prefix_cache:
+        ap.error("--shared-prefix needs --prefix-cache (shared tokens "
+                 "without a cache would just be re-prefilled every time)")
 
     device = kbackend.resolve_device(args.device)
     cfg = configs.get(args.arch)
@@ -251,15 +326,32 @@ def main(argv=None):
     kernel = ("fused_q8" if args.kv_quant
               else "fused" if args.fused_kernel else "dispatch")
     telemetry = args.telemetry or args.policy == "adaptive"
+    # the cache's page quantum follows the pool's, so shared and private
+    # pages account in the same currency (the session checks it)
+    page_kwargs = ({} if args.kv_page_size is None
+                   else dict(page_size=args.kv_page_size))
+    page_pool = (KVPagePool(args.kv_pages, **page_kwargs)
+                 if args.kv_pages is not None else None)
+    prefix_cache = (PrefixCache(args.prefix_cache_pages, **page_kwargs)
+                    if args.prefix_cache else None)
+    obs = (FlightRecorder(MetricsRegistry(), commands=args.obs_commands)
+           if args.obs else None)
     sess = build_session(cfg, params, max_batch=args.max_batch,
+                         scheduler=args.scheduler,
+                         vectorized=args.engine == "vectorized",
                          true_sectored=args.true_sectored,
                          telemetry=telemetry, policy=args.policy,
-                         bg_energy=args.bg_energy, kernel=kernel,
+                         bg_energy=args.bg_energy, page_pool=page_pool,
+                         prefix_cache=prefix_cache, obs=obs, kernel=kernel,
                          device=device)
     rng = np.random.default_rng(0)
+    shared = rng.integers(0, cfg.vocab,
+                          size=args.shared_prefix).astype(np.int32)
     handles = []
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=8 + rid % 5).astype(np.int32)
+        if args.shared_prefix:
+            prompt = np.concatenate([shared, prompt])
         sampler = None
         if args.temperature > 0 and rid % args.sample_every == 0:
             # seed = --seed + rid, printed below, so any one stream can
@@ -273,18 +365,36 @@ def main(argv=None):
     stats = sess.run_until_drained()
     if not all(h.done for h in handles):
         raise RuntimeError("session drained with unfinished requests")
+    pool_tag = ("" if sess.page_pool is None
+                else f"preemptions={stats['preemptions']} "
+                     f"kv_peak_pages={sess.page_pool.peak_pages} ")
+    prefix_tag = ""
+    if sess.prefix_cache is not None:
+        c = sess.prefix_cache
+        prefix_tag = (f"prefix_hits={c.stats['hits']}/"
+                      f"{c.stats['hits'] + c.stats['misses']} "
+                      f"(rate={c.hit_rate:.2f}) "
+                      f"prefix_hit_tokens={c.stats['hit_tokens']} "
+                      f"shared_pages_held={c.held_pages} "
+                      f"cow_copies={c.stats['cow_copies']} "
+                      f"prefix_evictions={c.stats['evictions']} ")
     print(f"arch={cfg.name} device={device} kernel={kernel} "
+          f"engine={args.engine} scheduler={args.scheduler} "
           f"completed={stats['completed']} "
           f"decode_steps={stats['decode_steps']} waves={stats['waves']} "
           f"sectored_steps={stats['sectored_steps']} "
           f"merged_slots={stats['merged_slots']} "
-          f"eos_stops={stats['eos_stops']} "
+          f"overlapped_prefills={stats['overlapped_prefills']} "
+          f"eos_stops={stats['eos_stops']} {pool_tag}{prefix_tag}"
           f"kv_bytes_saved_at_32k="
           f"{sectored_decode.bytes_saved_fraction(32768):.2f}")
     if args.temperature > 0:
         print_seed_provenance(handles, base_seed=args.seed)
     if telemetry:
         print_energy_report(sess, handles, trace_out=args.trace_out)
+    if obs is not None:
+        print_obs_report(obs, trace_out=args.obs_trace_out,
+                         perfetto_out=args.obs_perfetto_out)
     return stats
 
 
@@ -329,6 +439,11 @@ def print_energy_report(sess, handles, *, trace_out=None) -> None:
           f"prefill={report['prefill_j'] * 1e3:.3f}{bg}) "
           f"| {per_token * 1e6:.3f} uJ/token "
           f"| wall={report['wall_s']:.3f}s")
+    if report.get("prefix_hit_tokens") or report.get("shared_act_j"):
+        shared_mj = (report["shared_act_j"] + report["shared_rd_j"]) * 1e3
+        print(f"prefix reuse: {report['prefix_hit_tokens']} prompt tokens "
+              f"served from cache; shared-fetch amortization credited "
+              f"{shared_mj:.3f} mJ across co-readers")
     total_ns = report["dram_ns"] + report["prefill_dram_ns"]
     print(f"modeled DRAM time: {total_ns * 1e-3:.3f} us "
           f"(decode={report['dram_ns'] * 1e-3:.3f} "
@@ -349,6 +464,31 @@ def print_energy_report(sess, handles, *, trace_out=None) -> None:
     if trace_out:
         path = meter.recorder.to_jsonl(trace_out)
         print(f"wrote per-wave trace: {path}")
+
+
+def print_obs_report(obs, *, trace_out=None, perfetto_out=None) -> None:
+    """Flight-recorder summary: the metrics snapshot table plus optional
+    span-trace exports (JSONL and/or Perfetto; command-timeline records,
+    when traced, ride along as a .commands.jsonl sibling and a dedicated
+    Perfetto track)."""
+    spans = obs.spans()
+    commands = obs.command_records if obs.trace_commands else None
+    print("-- flight recorder ---------------------------------------------")
+    tag = (f" command_records={len(commands)}" if commands is not None
+           else "")
+    print(f"steps={obs.step} spans={len(spans)}{tag}")
+    print(MetricsRegistry.render(obs.snapshot()))
+    if trace_out:
+        path = write_jsonl(spans, trace_out)
+        print(f"wrote span trace: {path}")
+        if commands is not None:
+            cmd_path = write_jsonl(
+                commands, str(trace_out) + ".commands.jsonl")
+            print(f"wrote command trace: {cmd_path}")
+    if perfetto_out:
+        path = write_perfetto(spans, perfetto_out, commands=commands)
+        print(f"wrote perfetto trace: {path} "
+              f"(open in ui.perfetto.dev or chrome://tracing)")
 
 
 if __name__ == "__main__":

@@ -25,6 +25,9 @@ time. A CUDA graph records those launches once and replays them as one.
   them to the counters on every replay; the warm-up's and the capture's
   own calls are taken back out (:func:`uncounted`), so the counters read
   what the card ran for the caller.
+* garbage: the cyclic collector runs before a capture and not during it,
+  since freeing another graph while a stream captures invalidates the
+  capture.
 
 Leaf module: imports torch and the kernel wrappers' counters only.
 """
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 
 import torch
 
@@ -186,9 +190,20 @@ class CapturedStep:
         current.wait_stream(self.stream)
 
     def _record(self, static):
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            out = self.body(*static)
+        # a graph the cyclic garbage collector frees during the capture (a
+        # dropped session's: sessions, handles and recorders form cycles)
+        # is destroyed while the stream captures, which invalidates the
+        # capture; collect before it and not during it
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                out = self.body(*static)
+        finally:
+            if enabled:
+                gc.enable()
         return graph, out
 
 

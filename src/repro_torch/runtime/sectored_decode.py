@@ -31,19 +31,24 @@ Port notes:
   the backend on the card replays captured CUDA graphs
   (:mod:`repro_torch.runtime.graphs`); ``graphs=False`` runs eagerly;
 * ``fused_q8`` re-quantizes the whole cache on every step, as the
-  reference does.
+  reference does;
+* the prefix-cache hooks: ``state_prefix`` copies a cached state (the
+  reference aliases its immutable arrays; here the next append would
+  write into the cached entry) and ``suffix_prefill`` runs the prefill's
+  step from that seed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import backend, quantized_kv, sectored_attention
 from repro_torch.models import attention, layers, model
 from repro_torch.runtime import sector_predictor
-from repro_torch.runtime.graphs import Step, leaves
+from repro_torch.runtime.graphs import Step, copy_tree_, leaves
 from repro_torch.serve.backend import ServingBackend
 from repro_torch.telemetry.meters import KVGeometry
 
@@ -106,6 +111,15 @@ class SectoredState:
             kv=attention.KVCache(k=z(self.kv.k, 1), v=z(self.kv.v, 1),
                                  length=z(self.kv.length, 1)),
             table=z(self.table, 1), position=z(self.position, 0))
+
+    def row(self, slot: int) -> "SectoredState":
+        """Batch row ``slot`` as a batch-1 state (views, no copy)."""
+        return SectoredState(
+            kv=attention.KVCache(k=self.kv.k[:, slot:slot + 1],
+                                 v=self.kv.v[:, slot:slot + 1],
+                                 length=self.kv.length[:, slot:slot + 1]),
+            table=self.table[:, slot:slot + 1],
+            position=self.position[slot:slot + 1])
 
     def set_row(self, slot: int, row: "SectoredState") -> None:
         """Copy batch row 0 of ``row`` into batch row ``slot``, in place
@@ -269,6 +283,20 @@ def or_merge_demands(stacked_state: SectoredState,
                          position=stacked_state.position)
 
 
+def unique_fetches(pages, group_ids) -> int:
+    """Distinct (group, kv-head, page) sectored fetches a wave issues.
+
+    pages: (slots, Hkv, K) selected page indices per slot; slots in the
+    same group fetch from the same KV pages, so duplicates collapse (the
+    merge shrinks this when demands are OR-merged first).
+    """
+    pages = np.asarray(pages)
+    gids = np.asarray(group_ids)
+    S, H, K = pages.shape
+    return len({(int(gids[s]), h, int(pages[s, h, k]))
+                for s in range(S) for h in range(H) for k in range(K)})
+
+
 class SectoredKVBackend(ServingBackend):
     """DecodeBackend over SectoredState with per-page-budget steps.
 
@@ -309,7 +337,8 @@ class SectoredKVBackend(ServingBackend):
         exact_fn = self._step_for(self.pages)
         super().__init__(self._prefill, exact_fn,
                          self._step_for(self.k_for(topk_frac)),
-                         or_merge_demands, vocab=cfg.vocab)
+                         or_merge_demands, vocab=cfg.vocab,
+                         device=self.device)
 
     def _step_for(self, k_pages: int) -> Step:
         fn = self._k_cache.get(k_pages)
@@ -369,6 +398,11 @@ class SectoredKVBackend(ServingBackend):
         into the static token and a replay, with no host sync between
         tokens; the logits and state returned are copies.
         """
+        return self._scan(None, tokens)
+
+    def _scan(self, seed, tokens):
+        """The exact step over ``tokens`` (B, S) from ``seed`` (None: a
+        fresh state), as :meth:`_prefill` describes."""
         tokens = torch.as_tensor(tokens, dtype=torch.int32,
                                  device=self.device)
         batch = tokens.shape[0]
@@ -380,10 +414,14 @@ class SectoredKVBackend(ServingBackend):
                                device=self.device),
                     exact.capture(exact.step_))
             state, step = self._prefill_graphs[batch]
-            state.zero_()
+            if seed is None:
+                state.zero_()
+            else:
+                copy_tree_(state, seed)
         else:
-            state = init_state(self.cfg, batch, self.seq_len,
-                               device=self.device)
+            state = (init_state(self.cfg, batch, self.seq_len,
+                                device=self.device)
+                     if seed is None else seed)
             step = exact.step_
         logits = None
         for i in range(tokens.shape[1]):
@@ -391,6 +429,38 @@ class SectoredKVBackend(ServingBackend):
         if self.graphs:
             return logits.clone(), state.clone()
         return logits, state
+
+    # -- prefix-cache hooks (serve.prefix.PrefixCache warm admission) ------
+
+    def state_prefix(self, state: SectoredState, n_tokens: int
+                     ) -> SectoredState:
+        """A copy of a donor state cut to its first ``n_tokens``.
+
+        KV rows for positions < n depend only on those n tokens, and the
+        exact attend masks every row past the cache length to exact zero,
+        so the donor's rows beyond n are invisible; the next append
+        overwrites row n. The reference aliases the donor's (immutable)
+        K/V; here a step appends in place, so the seed is a clone —
+        sharing the donor's buffers would write the first suffix token
+        into row n of a cached entry. The sector-history table is carried
+        as-is, as in the reference: exact mode selects every page
+        whatever the table holds, so only the exact path is bitwise the
+        cold one.
+        """
+        seed = state.clone()
+        seed.kv.length.fill_(int(n_tokens))
+        seed.position.fill_(int(n_tokens))
+        return seed
+
+    def suffix_prefill(self, state: SectoredState, tokens):
+        """Resume exact-mode prefill from a seeded state (a warm
+        admission prefills only the unmatched prompt suffix): the same
+        exact step :meth:`_prefill` runs, from ``state`` instead of a
+        fresh one, so (seed at n) + (suffix) is bitwise the cold prefill.
+        With graphs the seed is copied into the static prefill state and
+        the captured step replayed, copies returned; eagerly the seed is
+        consumed (stepped in place)."""
+        return self._scan(state, tokens)
 
 
 def make_serving_fns(cfg, *, params, seq_len: int,

@@ -6,7 +6,8 @@ A backend bundles the data path: ``prefill_fn``, dense ``decode_fn``,
 composes a decode step with on-device token selection (greedy first-max,
 or the full :mod:`repro_torch.sample` kernel), the stop guard and the
 token's logprob; :func:`make_fused_wave` is the wave the session runs,
-which writes the new state and sampler rows in place. The reference vmaps
+which writes the new state and sampler rows in place, and
+:func:`make_prefused_wave` the same wave without the selection. The reference vmaps
 a per-slot step over stacked slot states; here the slot axis IS the batch
 axis of one state, so the wave is one batched call. Where the reference
 jits the wave, a step that offers ``capture`` (a ``SectoredKVBackend``
@@ -33,13 +34,15 @@ class ServingBackend:
     def __init__(self, prefill_fn: Callable, decode_fn: Callable,
                  sectored_fn: Callable | None = None,
                  demand_merge_fn: Callable | None = None, *,
-                 vocab: int | None = None):
+                 vocab: int | None = None, device=None):
         self.prefill_fn = prefill_fn
         self.decode_fn = decode_fn
         self.sectored_fn = sectored_fn
         self.demand_merge_fn = demand_merge_fn
         # vocabulary bound: ServeSession.submit rejects stop tokens past it
         self.vocab = vocab
+        # where the session keeps its wave buffers (None: the GPU)
+        self.device = device
 
     @property
     def supports_sectored(self) -> bool:
@@ -134,3 +137,15 @@ def make_fused_wave(fn: Callable, *, sampled: bool = False) -> Callable:
 
     capture = getattr(fn, "capture", None)
     return capture(wave) if capture is not None else wave
+
+
+def make_prefused_wave(fn: Callable) -> Callable:
+    """The pre-fused wave ``wave(state, token) -> logits``: the decode step
+    ``fn`` alone, its new state written into ``state``, selection left to
+    the caller (the reference's ``fuse_wave=False`` ablation, and the
+    looped session's per-slot step). As :func:`make_fused_wave`, a step
+    that offers ``capture`` makes it one CUDA graph bound to the state of
+    its first call."""
+    step_ = getattr(fn, "step_", None) or _in_place(fn)
+    capture = getattr(fn, "capture", None)
+    return capture(step_) if capture is not None else step_

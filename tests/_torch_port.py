@@ -1,5 +1,7 @@
 """Shared helpers of the repro_torch parity tests (``test_torch_*.py``)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +11,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import model as jmodel
 from repro_torch import bridge, configs
+from repro_torch.serve import ServingBackend
 
 #: the reduced yi-6b of tests/test_kernels_fused.py
 SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
@@ -47,3 +50,78 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@dataclasses.dataclass
+class SumState:
+    """The toy backend's state: the running token sum ``s`` (B,) and a
+    ``kv`` leaf (B, width) whose width stands in for page padding."""
+
+    s: torch.Tensor
+    kv: torch.Tensor
+
+    def zeros_batch(self, n: int) -> "SumState":
+        return SumState(torch.zeros((n,), dtype=self.s.dtype),
+                        torch.zeros((n, self.kv.shape[1])))
+
+    def set_row(self, slot: int, row: "SumState") -> None:
+        self.s[slot] = row.s[0]
+        self.kv[slot] = row.kv[0]
+
+
+def sum_backend(quantum=None, vocab=32):
+    """The port's counterpart of the reference tests' resume-consistent
+    ``_sum_backend``: the state carries ``s = sum(tokens consumed)`` and
+    every step emits ``one_hot(s % vocab)``; prefill over ``prompt +
+    generated`` recomputes the ``s`` the uncontended decode reached.
+    ``quantum`` pads the kv width to the prompt-length quantum (page-padded
+    signatures), else it is a fixed 8."""
+
+    def prefill_fn(tokens):
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32)
+        B, S = tokens.shape
+        s = tokens.sum(dim=1).to(torch.int32)
+        width = 8 if quantum is None else quantum * (
+            (S + quantum - 1) // quantum)
+        logits = torch.nn.functional.one_hot(s.long() % vocab, vocab)
+        return logits.float(), SumState(s, torch.zeros((B, width)))
+
+    def decode_fn(state, token):
+        s = state.s + token[:, 0]
+        logits = torch.nn.functional.one_hot(s.long() % vocab, vocab)
+        return logits.float(), SumState(s, state.kv)
+
+    return ServingBackend(prefill_fn, decode_fn, vocab=vocab, device="cpu")
+
+
+def jax_sum_backend(quantum=None, vocab=32):
+    """The reference tests' ``_sum_backend`` (tests/test_serve_capacity.py),
+    the JAX side of :func:`sum_backend`."""
+    from repro.serve import ServingBackend as JServingBackend
+
+    def prefill_fn(tokens):
+        B, S = tokens.shape
+        s = jnp.sum(tokens, axis=1).astype(jnp.int32)
+        width = 8 if quantum is None else quantum * (
+            (S + quantum - 1) // quantum)
+        kv = jnp.zeros((B, width), jnp.float32)
+        return jax.nn.one_hot(s % vocab, vocab), dict(s=s, kv=kv)
+
+    def decode_fn(state, token):
+        s = state["s"] + token[:, 0]
+        return jax.nn.one_hot(s % vocab, vocab), dict(s=s, kv=state["kv"])
+
+    return JServingBackend(prefill_fn, decode_fn, vocab=vocab)
+
+
+def expected_sum_stream(prompt, n, vocab=32, stop=()):
+    """Host replay of the sum backend's greedy stream."""
+    s = int(np.sum(prompt))
+    out = []
+    for _ in range(n):
+        tok = s % vocab
+        out.append(tok)
+        if tok in stop:
+            break
+        s += tok
+    return out

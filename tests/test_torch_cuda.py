@@ -19,7 +19,9 @@ from repro_torch.models import model
 from repro_torch.runtime import graphs, sectored_decode
 from repro_torch.sample import (SamplerRows, SamplerSpec, kernel, rng,
                                 sample_from_logits)
-from repro_torch.serve import AlwaysDense, Request, ServeSession
+from repro_torch.obs import FlightRecorder
+from repro_torch.serve import (AlwaysDense, KVPagePool, PrefixCache, Request,
+                               ServeSession)
 from repro_torch.serve import make_fused_wave
 
 pytestmark = pytest.mark.cuda
@@ -511,6 +513,35 @@ def test_uncapturable_step_raises(gpu):
                        torch.full((4,), 2.0, device=gpu))  # card still fine
 
 
+def test_capture_survives_cyclic_garbage_holding_a_graph(gpu):
+    """A graph held only by cyclic garbage (a dropped session: sessions,
+    handles and recorders form cycles) must not be destroyed while another
+    step captures, which would invalidate the capture: the collector runs
+    before a capture, not inside it. The body collects on purpose while
+    capturing, as any allocation there could."""
+    import gc
+
+    def body(state, token):
+        state.add_(token)
+        return state * 2
+
+    def collecting(state, token):
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+        return body(state, token)
+
+    first = graphs.CapturedStep(body)
+    first(torch.zeros(4, device=gpu), torch.ones(4, device=gpu))
+    garbage = {"step": first}
+    garbage["self"] = garbage
+    del first, garbage
+    state = torch.zeros(4, device=gpu)
+    out = graphs.CapturedStep(collecting)(state, torch.ones(4, device=gpu))
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full((4,), 2.0, device=gpu))
+    assert torch.equal(state, torch.ones(4, device=gpu))
+
+
 SEEDS = (0, 1, 3, 2**31, 2**32 - 1)
 POSITIONS = (0, 1, 2, 127, 4095)
 
@@ -604,3 +635,65 @@ def test_sampled_and_greedy_waves_replay_bitwise_eager(gpu, path):
         assert all(torch.equal(a, b) for a, b in zip(fg, fe))
     greedy, mixed = out["greedy", True][0], out["mixed", True][0]
     assert greedy[1] == mixed[1] and greedy[3] == mixed[3]
+
+
+def _layer_streams(gpu, cfg, params, fuse_wave=True, **kw):
+    """4 prompts sharing a 128-token prefix, on the exact path with graphs
+    and the meter; returns the session and each request's (tokens,
+    logprobs, preemptions)."""
+    gen = torch.Generator().manual_seed(4)
+    shared = torch.randint(0, cfg.vocab, (128,), generator=gen)
+    sess = launch_serve.build_session(
+        cfg, params, true_sectored=True, kernel="fused", policy="dense",
+        seq_len=768, device=gpu, telemetry=True, **kw)
+    if not fuse_wave:  # the CLI has no flag for the pre-fused ablation
+        sess = ServeSession(sess.backend, max_batch=sess.max_batch,
+                            policy=sess.policy, fuse_wave=False)
+    handles = [sess.submit(Request(r, torch.cat([shared, torch.randint(
+        0, cfg.vocab, (t,), generator=gen)]).numpy().astype("int32"),
+        max_new_tokens=12)) for r, t in enumerate((20, 22, 24, 26))]
+    sess.run_until_drained()
+    return sess, [(h.peek(), h.logprobs(), h.preemptions) for h in handles]
+
+
+# a batch-1 step (a looped slot, a resume's re-prefill) and the batch-4
+# wave need not be bitwise on the card: at this width their logits part
+# by a bf16 ulp on some rows, and the logprob's 512-wide sum by f32 ulps
+# (chip_smoke.py's batch_invariance line measures it at full width)
+BATCH_LOGPROB_TOL = 0.02
+
+
+def test_serving_layer_flavors_agree_on_card(gpu):
+    """The serving layer on the card, graphs on, against the FIFO
+    session: the pre-fused wave bitwise; overlap with a preempting page
+    pool, and with a prefix cache and the flight recorder, bitwise for
+    every request never preempted (a warm prefill is bitwise the cold
+    one) and with the same tokens and close logprobs for a resumed one;
+    the looped wave (one graph per slot, on the slot's own buffer), which
+    steps at batch 1, with the same tokens and close logprobs."""
+    cfg = configs.get("yi-6b").reduced(**GRAPH_CFG)
+    params = model.init_params(cfg, seed=0, device=gpu)
+    _, oracle = _layer_streams(gpu, cfg, params)
+    _, prefused = _layer_streams(gpu, cfg, params, fuse_wave=False)
+    assert prefused == oracle
+    pool = dict(scheduler="overlap", page_pool=KVPagePool(21, page_size=32))
+    cold, cold_streams = _layer_streams(gpu, cfg, params, **pool)
+    warm, warm_streams = _layer_streams(
+        gpu, cfg, params, prefix_cache=PrefixCache(16, page_size=32),
+        obs=FlightRecorder(), **pool)
+    looped, looped_streams = _layer_streams(gpu, cfg, params,
+                                            vectorized=False)
+    assert cold.stats["preemptions"] > 0
+    assert warm.prefix_cache.stats["hits"] > 0
+    assert all(isinstance(w, graphs.CapturedStep)
+               for w in looped._wave_cache.values())
+    assert {k[1] for k in looped._wave_cache} == {0, 1, 2, 3}
+    for streams, batch_1 in ((cold_streams, False), (warm_streams, False),
+                             (looped_streams, True)):
+        for (toks, lps, n), (want_toks, want_lps, _) in zip(streams, oracle):
+            assert toks == want_toks
+            if n == 0 and not batch_1:
+                assert lps == want_lps
+            else:
+                assert max(abs(a - b) for a, b in zip(lps, want_lps)) <= \
+                    BATCH_LOGPROB_TOL

@@ -17,13 +17,21 @@ import torch
 from _torch_port import small_models
 from _torch_port import one_torch_thread  # noqa: F401  (autouse)
 from repro.runtime import sectored_decode as jsd
+from repro import serve as jserve
+from repro.launch import serve as jlaunch_serve
+from repro.sample import SamplerSpec as JSamplerSpec
 from repro.serve import AlwaysSectored as JAlwaysSectored
 from repro.serve import Request as JRequest
 from repro.serve import ServeSession as JServeSession
+from repro_torch import serve as pserve
 from repro_torch.launch import serve as launch_serve
+from repro_torch.obs import FlightRecorder
 from repro_torch.runtime import sectored_decode
 from repro_torch.sample import SamplerSpec
-from repro_torch.serve import AlwaysSectored, Request, ServeSession
+from repro_torch.serve import (AlwaysSectored, Engine, EngineConfig,
+                               FifoScheduler, KVPagePool, LoopedEngine,
+                               OverlapScheduler, PrefixCache, Request,
+                               ServeSession, ServingBackend)
 from repro_torch.telemetry import MeteredBackend
 
 SEQ_LEN = 384  # 8 padded pages
@@ -181,11 +189,18 @@ def test_session_rejects_what_is_not_ported(models):
     _, cfg, _, params = models
     backend = sectored_decode.make_serving_fns(cfg, params=params,
                                                seq_len=SEQ_LEN, device="cpu")
-    for kwargs in (dict(page_pool=object()), dict(prefix_cache=object()),
-                   dict(obs=object()), dict(vectorized=False),
+    # only the mesh is still to port; the pool, the prefix cache, the
+    # flight recorder and the looped and pre-fused waves are accepted
+    mesh = sectored_decode.make_serving_fns(cfg, params=params,
+                                            seq_len=SEQ_LEN, device="cpu")
+    mesh.wave_for = lambda fn, sampled=False: None
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ServeSession(mesh)
+    for kwargs in (dict(page_pool=KVPagePool(8)),
+                   dict(prefix_cache=PrefixCache(8)),
+                   dict(obs=FlightRecorder()), dict(vectorized=False),
                    dict(fuse_wave=False)):
-        with pytest.raises(NotImplementedError):
-            ServeSession(backend, **kwargs)
+        ServeSession(backend, **kwargs)
     # a metered backend is ported: the session discovers its meter
     metered = ServeSession(MeteredBackend(backend))
     assert metered.meter is not None and metered.backend.inner is backend
@@ -243,3 +258,201 @@ def test_cli_dense_and_sampled_on_cpu(capsys, extra):
     with pytest.raises(SystemExit):  # a filter without a temperature
         launch_serve.main(["--arch", "yi-6b", "--top-p", "0.9",
                            "--device", "cpu"])
+
+
+# -- overlap scheduling, paged admission, wave flavors, engine shims ----------
+
+
+def _mixed_run(stack, backend, scheduler, spec_cls, **flavor):
+    """The reference's fifo == overlap sampling trace: 5 requests, odd
+    ones sampled, 2 slots, the sectored top-k path with the OR-merge."""
+    sess = stack.ServeSession(backend, max_batch=2, scheduler=scheduler,
+                              policy=stack.HysteresisPolicy(
+                                  min_occupancy=0.5), **flavor)
+    rng = np.random.default_rng(5)
+    handles = []
+    for rid in range(5):
+        prompt = rng.integers(0, 128, size=6).astype(np.int32)
+        spec = (spec_cls(temperature=0.9, top_p=0.95, seed=40 + rid)
+                if rid % 2 else None)
+        handles.append(sess.submit(stack.Request(rid, prompt,
+                                                 max_new_tokens=4,
+                                                 sampler=spec)))
+    stats = sess.run_until_drained()
+    assert stats["sectored_waves"] > 0
+    return {h.rid: h.peek() for h in handles}, dict(stats)
+
+
+def test_overlap_matches_fifo_and_reference(models):
+    """fifo == overlap in the port (every wave flavor), and both equal the
+    reference's streams and stats on the same trace; overlap prefills
+    under in-flight waves in fewer prefill calls."""
+    jcfg, cfg, jparams, params = models
+    port = sectored_decode.make_serving_fns(cfg, params=params, seq_len=48,
+                                            device="cpu")
+    ref = jsd.make_serving_fns(jcfg, params=jparams, seq_len=48)
+    fifo, fstats = _mixed_run(pserve, port, FifoScheduler(),
+                              SamplerSpec)
+    for flavor in (dict(), dict(vectorized=False), dict(fuse_wave=False)):
+        assert _mixed_run(pserve, port, FifoScheduler(), SamplerSpec,
+                          **flavor)[0] == fifo
+        toks, ostats = _mixed_run(pserve, port, OverlapScheduler(),
+                                  SamplerSpec, **flavor)
+        assert toks == fifo
+    assert ostats["overlapped_prefills"] >= 1
+    assert fstats["overlapped_prefills"] == 0
+    assert ostats["prefill_calls"] < fstats["prefill_calls"]
+    jfifo, jfstats = _mixed_run(jserve, ref, jserve.FifoScheduler(),
+                                JSamplerSpec)
+    jov, jostats = _mixed_run(jserve, ref, jserve.OverlapScheduler(),
+                              JSamplerSpec)
+    assert (fifo, fstats) == (jfifo, jfstats)
+    assert (toks, ostats) == (jov, jostats)
+
+
+def _quantum_backend(quantum=4, vocab=32):
+    """A toy backend whose state width is the prompt length rounded up to
+    ``quantum`` (a stand-in for page-padded KV)."""
+    from _torch_port import SumState
+
+    def prefill_fn(tokens):
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32)
+        B, S = tokens.shape
+        s = tokens.sum(dim=1).to(torch.int32)
+        q = quantum * ((S + quantum - 1) // quantum)
+        logits = torch.nn.functional.one_hot(s.long() % vocab, vocab)
+        return logits.float(), SumState(s, torch.zeros((B, q)))
+
+    def decode_fn(state, token):
+        logits = torch.nn.functional.one_hot(
+            (token[:, 0].long() + 1) % vocab, vocab)
+        return logits.float(), SumState(state.s + 1, state.kv)
+
+    return ServingBackend(prefill_fn, decode_fn, device="cpu")
+
+
+def test_paged_admission_by_signature():
+    """Same quantum shares a wave; another quantum is prefilled, parked
+    and admitted once the wave drains (head of line, never starved);
+    FIFO has no paged admission and raises."""
+    sess = ServeSession(_quantum_backend(), max_batch=4,
+                        scheduler=OverlapScheduler())
+    for rid, n in enumerate((3, 4, 6)):
+        sess.submit(Request(rid, np.arange(n, dtype=np.int32),
+                            max_new_tokens=3))
+    sess.step()
+    assert sess.active_slots() == [0, 1] and sess.scheduler.pending() == 1
+    sess.run_until_drained()
+    assert sess.completion_order == [0, 1, 2]
+    steady = ServeSession(_quantum_backend(), max_batch=2,
+                          scheduler=OverlapScheduler())
+    for rid in range(2):
+        steady.submit(Request(rid, np.arange(3, dtype=np.int32),
+                              max_new_tokens=6))
+    steady.step()
+    parked = steady.submit(Request(100, np.arange(6, dtype=np.int32),
+                                   max_new_tokens=3))
+    for i in range(40):
+        steady.submit(Request(200 + i, np.arange(3, dtype=np.int32),
+                              max_new_tokens=2))
+        steady.step()
+        if parked.done:
+            break
+    assert parked.done
+    fifo = ServeSession(_quantum_backend(), max_batch=4)
+    fifo.submit(Request(0, np.arange(3, dtype=np.int32), max_new_tokens=4))
+    fifo.step()
+    fifo.submit(Request(1, np.arange(6, dtype=np.int32), max_new_tokens=4))
+    with pytest.raises(ValueError, match="cannot join the in-flight wave"):
+        fifo.step()
+    group = ServeSession(_quantum_backend(), max_batch=2,
+                         scheduler=OverlapScheduler())
+    handles = [group.submit(Request(r, np.arange(3, dtype=np.int32),
+                                    max_new_tokens=1)) for r in range(3)]
+    group.run_until_drained()
+    assert all(len(h.peek()) == 1 and h.done for h in handles)
+
+
+def test_engine_shims_looped_equals_vectorized(models):
+    """The legacy shims mutate the Request in place; the looped engine's
+    streams equal the vectorized engine's on the sectored backend (top-k
+    path and OR-merge on), and an engine's config is its own."""
+    _, cfg, _, params = models
+    backend = sectored_decode.make_serving_fns(cfg, params=params,
+                                               seq_len=48, device="cpu")
+    fns = (backend.prefill_fn, backend.decode_fn, backend.sectored_fn)
+    streams = []
+    for cls in (Engine, LoopedEngine):
+        engine = cls(*fns, EngineConfig(max_batch=2),
+                     demand_merge_fn=backend.demand_merge_fn, device="cpu")
+        shared = np.arange(6, dtype=np.int32)
+        reqs = [Request(rid, shared.copy() if rid < 2 else
+                        np.arange(rid, rid + 6, dtype=np.int32),
+                        max_new_tokens=4) for rid in range(4)]
+        for r in reqs:
+            engine.submit(r)
+        stats = engine.run_until_drained()
+        assert all(r.done and len(r.generated) == 4 for r in reqs)
+        assert stats["sectored_waves"] > 0 and stats["merged_slots"] > 0
+        streams.append([list(r.generated) for r in reqs])
+    assert streams[0] == streams[1]
+    assert streams[0][0] == streams[0][1]  # identical prompts
+    f = LoopedEngine(*fns, EngineConfig(max_batch=2), device="cpu")
+    g = Engine(*fns, device="cpu")
+    assert f.cfg is not g.cfg and g.cfg.max_batch == 8
+    assert f.states == [None, None] and g.batched is None
+
+
+_CLI_KEYS = ("completed", "decode_steps", "waves", "sectored_steps",
+             "merged_slots", "overlapped_prefills", "eos_stops",
+             "preemptions", "kv_peak_pages", "prefix_hits",
+             "prefix_hit_tokens", "shared_pages_held", "cow_copies",
+             "prefix_evictions")
+
+
+def _summary(out: str) -> dict:
+    line = next(ln for ln in out.splitlines() if ln.startswith("arch="))
+    pairs = dict(tok.split("=", 1) for tok in line.split() if "=" in tok)
+    return {k: pairs[k] for k in _CLI_KEYS}
+
+
+@pytest.mark.parametrize("engine", ["vectorized", "looped"])
+def test_cli_serving_layer_flags_match_reference(capsys, tmp_path, engine):
+    """The CLI's pool, prefix-cache, overlap and recorder flags: the
+    summary line's counters equal the reference CLI's on the same flags
+    (they depend on prompt lengths and scheduling, not on the weights,
+    which each stack draws from its own generator); the exports exist."""
+    flags = ["--arch", "yi-6b", "--reduced", "--requests", "5",
+             "--max-new-tokens", "6", "--max-batch", "2",
+             "--true-sectored", "--policy", "sectored",
+             "--scheduler", "overlap", "--kv-pages", "6",
+             "--kv-page-size", "16", "--prefix-cache", "--shared-prefix",
+             "32", "--engine", engine, "--obs"]
+    jlaunch_serve.main(flags)
+    want = _summary(capsys.readouterr().out)
+    trace, perfetto = tmp_path / "t.jsonl", tmp_path / "t.json"
+    stats = launch_serve.main([*flags, "--telemetry", "--obs-commands",
+                               "--obs-trace-out", str(trace),
+                               "--obs-perfetto-out", str(perfetto),
+                               "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert _summary(out) == want
+    assert stats["completed"] == 5 and stats["preemptions"] > 0
+    assert "-- flight recorder" in out and "prefix reuse:" in out
+    assert trace.exists() and perfetto.exists()
+    assert (tmp_path / "t.jsonl.commands.jsonl").exists()
+
+
+@pytest.mark.parametrize("bad", [
+    ["--prefix-cache"], ["--true-sectored", "--shared-prefix", "4"],
+    ["--kv-page-size", "16"], ["--obs-trace-out", "x"],
+    ["--obs", "--obs-commands"]],
+    ids=["cache_without_sectored", "shared_without_cache",
+         "page_size_without_pool", "trace_without_obs",
+         "commands_without_telemetry"])
+def test_cli_refuses_what_the_reference_refuses(bad):
+    with pytest.raises(SystemExit):
+        launch_serve.main(["--arch", "yi-6b", "--reduced", "--device", "cpu",
+                           *bad])
+    with pytest.raises(SystemExit):
+        jlaunch_serve.main(["--arch", "yi-6b", "--reduced", *bad])

@@ -47,7 +47,7 @@ from repro.telemetry import meters as jmeters
 from repro_torch import configs
 from repro_torch.core import metrics, power, timing
 from repro_torch.launch import serve as launch_serve
-from repro_torch.obs import audit, commands
+from repro_torch.obs import FlightRecorder, audit, commands
 from repro_torch.runtime import sectored_decode
 from repro_torch.serve import (AdaptiveSectorPolicy, AlwaysDense,
                                AlwaysSectored, Request, ServeSession)
@@ -690,9 +690,15 @@ def test_build_session_meters_the_backend():
     assert sess.policy.recorder is sess.meter.recorder
     with pytest.raises(ValueError):
         launch_serve.build_policy("adaptive")
+    # the flight recorder is ported; the mesh is still to port
+    obs = FlightRecorder()
+    traced = launch_serve.build_session(cfg, params, true_sectored=True,
+                                        telemetry=True, obs=obs,
+                                        seq_len=384, device="cpu")
+    assert traced.obs is obs and obs.meter is traced.meter
     with pytest.raises(NotImplementedError):
         launch_serve.build_session(cfg, params, true_sectored=True,
-                                   telemetry=True, obs=object(),
+                                   telemetry=True, mesh="2",
                                    seq_len=384, device="cpu")
     for kernel, fraction in (("fused", 1.0), ("fused_q8", 0.5)):
         backend = sectored_decode.make_serving_fns(
