@@ -15,7 +15,8 @@ one JSON line:
    shapes, at the mask edges, at K = P = 24 with ragged lengths (the
    cluster's largest slice) and at K = 1 with one valid token, with its
    time, the plain version's time, one PyTorch yardstick call and the
-   card's bound;
+   card's bound; and at qwen3-moe's shapes (rep = 16, P = 16, K = 5,
+   ragged lengths), timed too;
    ops — the ``repro_torch.kernels.ops`` path: head-major sectored
    attention (f32, bf16), VBL gather and causal flash attention (bf16,
    f32) called once each at realistic sizes with every launch counter at
@@ -60,7 +61,8 @@ one JSON line:
    reference's int8 gate (fused_q8 vs dispatch logprob error
    <= LOGPROB_TOL, teacher-forced) on the reduced config it is defined
    for;
-3b. the serving layer at full width, metered, graphs on —
+3b. the serving layer at full width (the first 16 of the 32 layers),
+   metered, graphs on —
    ``batch_invariance``: one exact step for the same row at batch 1 and
    at batch 4, bitwise or its largest differences;
    ``serve_layer_exact`` (leg A, ``AlwaysDense`` over the fused backend,
@@ -81,11 +83,37 @@ one JSON line:
    was driven with (resumed and warm prefills included), the paged kernel
    launched n_layers times a wave; cold and warm prefill device ms, wave
    ms, hits, preemptions, peak memory and the Perfetto file's size;
+3c. the other model families —
+   ``moe_sectored`` (leg C): qwen3-moe-235b-a22b at full width, 8 of its
+   94 layers (the experts of all 94 would need 454 GB), ``seq_len`` 1024,
+   4 greedy prompts of 700-720 tokens, 16 new tokens, ``fused`` and
+   ``dispatch`` under ``AlwaysSectored``, each with graphs (metered) and
+   eagerly from one set of prefilled states: graph == eager bitwise;
+   in the fused eager run every fused attention call held to dispatch on
+   the same inputs (ATTN_REL_TOL, ATTN_TABLE_TOL); every routing flip between
+   the two eager runs shown to come from rounding (inputs within
+   FLIP_INPUT_ULPS at a request's first flip, a router near tie, a
+   capacity drop beside an earlier row's flip) and the logits within
+   LOGIT_TOL before each request's first flip; meters equal to their
+   host replays; the paged kernel (rep = 16) launched once a layer a
+   wave; every recorded MoE call held to a plain per-assignment f32 MoE
+   on the same rows (MOE_REF_TOL, the same assignments kept), with the
+   capacity's dropped assignments per layer;
+   ``dense_families`` (leg D): rwkv6-1.6b and recurrentgemma-2b at full
+   width and depth on the dense path, 4 greedy prompts of 500-600
+   tokens, 16 new tokens, with graphs and eagerly (bitwise), and the
+   first prompt's prefill state held to a token-by-token chain of the
+   eager decode step, lengths and position equal: at full depth every
+   layer within tol + slope x layer (DEPTH_SLOPE), again with f32
+   weights and state (the witness that the bf16 gap is rounding; every
+   layer within WITNESS_TOL), and on the first pattern of layers
+   (REC_TOL, KV_TOL, greedy streams parting only at a near tie);
 4. cli — ``repro_torch.launch.serve.main`` (reduced config): with
    ``--telemetry`` (it prints the energy table); with the serving layer's
    flags (``--scheduler overlap --kv-pages --prefix-cache --shared-prefix
    --obs --obs-commands --engine looped``), which must preempt; the dense
-   path sampling.
+   path sampling; qwen3-moe with ``--true-sectored --fused-kernel``,
+   rwkv6 and recurrentgemma on the dense path, on the card by default.
 
 Then a ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -96,6 +124,7 @@ file, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -140,6 +169,9 @@ TABLE_TOL = 1e-3  # SHT entries are EMA masses in [0, 1]
 # one bf16 ulp (2**-8 relative) apart. VBL gather moves bits: bitwise.
 HEAD_MAJOR_TOL = 1e-5
 FLASH_TOL = {"f32": 2e-5, "bf16": 2e-2}
+
+# the paged kernel at leg C's shapes (qwen3-moe, seq_len 1024)
+MOE_KERNEL_CASE = dict(B=4, Hkv=4, rep=16, hd=128, page=128, P=16, K=5)
 
 # the main path's schedule: 4 prompts, 16 tokens each (the prefill's and
 # 15 waves'), all 4 admitted before the first wave
@@ -298,6 +330,12 @@ def kernel_phase(torch, sa, qkv, dev="cuda", timed=True):
         # blocks of 384 token slots)
         "k_eq_p_24_ragged": dict(serving, K=24, lengths=[1, 1000, 2049, 3072]),
         "k1_len1": dict(serving, K=1, lengths=[1, 1, 1, 1]),
+        # qwen3-moe's 64 query heads over 4 KV heads (rep = 16, the whole
+        # 16-row mma tile) at leg C's pages: P = 16 padded pages, k = 4 +
+        # 1 probe, ragged lengths of its waves and at the mask edges
+        "moe_rep16": dict(MOE_KERNEL_CASE, lengths=[701, 709, 716, 733]),
+        "moe_rep16_ragged": dict(MOE_KERNEL_CASE, lengths=[1, 129, 1000,
+                                                           2048]),
     }
     results, worst = [], {"bf16": 0.0, "int8": 0.0}
     timing = {}
@@ -328,9 +366,9 @@ def kernel_phase(torch, sa, qkv, dev="cuda", timed=True):
                 fail(f"kernel {flavor} disagrees with its plain version "
                      f"on case {name}: out err {err_out}, mass err "
                      f"{err_mass} (tolerance {tol})")
-            if name == "serving" and timed:
-                timing[flavor] = time_flavor(torch, sa, case, flavor,
-                                             args, kw)
+            if name in ("serving", "moe_rep16") and timed:
+                key = flavor if name == "serving" else f"{flavor}_rep16"
+                timing[key] = time_flavor(torch, sa, case, flavor, args, kw)
     return results, worst, timing
 
 
@@ -785,7 +823,7 @@ def meter_record(np, meters, sess, backend, lengths, host_s, n_waves):
 def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
               prefills, *, graphs=True, record=False, dev="cuda",
               lengths=PROMPT_LENGTHS, seq_len=2048, metered=None,
-              specs=None, dense=False):
+              specs=None, dense=False, phase="main_path"):
     """Serve the 4 requests with ``kernel``, their waves and prefill as
     replays of captured CUDA graphs or, with ``graphs=False``, eagerly,
     through :func:`metered_session` (``metered``: None, "sectored",
@@ -872,7 +910,7 @@ def serve_run(torch, np, sa, launch_serve, cfg, params, kernel, n_layers,
     for wave in captured:
         for n_flavor, n in wave.warmup_launches[0].items():
             warmup[n_flavor] = warmup.get(n_flavor, 0) + n
-    out = dict(phase="main_path", kernel="dense" if dense else kernel,
+    out = dict(phase=phase, kernel="dense" if dense else kernel,
                graphs=backend.graphs, metered=metered, n_layers=n_layers,
                sampled=[s is not None for s in specs],
                wave_flavors=[("sampled" if key[1] else "greedy")
@@ -1558,10 +1596,23 @@ LEG_A = dict(shared=128, tails=(108, 110, 112, 114), new=24, pool_pages=11,
 # tokens across the 768-token boundary; overlap, pool, cache, recorder
 LEG_B = dict(shared=512, tails=(246, 248, 250, 252, 254, 256), new=24,
              pool_pages=16, cache_pages=12)
+# legs A and B run the first 16 of yi-6b's 32 layers (a cut of depth that
+# keeps the script, with legs C and D, near half its time limit)
+LEG_AB_LAYERS = 16
 # streams that part after a resume when the card is not batch-invariant
 # may part only where the two tokens' logits (batch-1 recomputation) are
 # the top two and within this many bf16 ulps
 TIE_ULPS = 2
+
+
+def first_layers(cfg, params, n):
+    """The config and parameters of the first ``n`` layers (views)."""
+    import dataclasses
+    from repro_torch.runtime.graphs import map_tree
+    layers = params["layers"]
+    layers = (layers[:n] if isinstance(layers, list)
+              else map_tree(lambda t: t[:n], layers))
+    return dataclasses.replace(cfg, n_layers=n), dict(params, layers=layers)
 
 
 def layer_prompts(np, vocab, leg, seed):
@@ -1937,6 +1988,596 @@ def serve_layer_fused(torch, np, sa, launch_serve, cfg, params, card,
     return out, sum(launches.values())
 
 
+# -- phase 3c: the other model families ----------------------------------------
+
+# leg C: qwen3-moe at full width, 8 of its 94 layers (one layer's experts
+# are 128 x 3 x 4096 x 1536 bf16 = 4.83 GB, so all 94 would be 454 GB;
+# 8 layers plus the embedding and unembedding are ~41 GB of the 80 GB);
+# prompts of 6 valid pages of the 16 padded ones (seq_len 1024), so
+# k = 4 + 1 probe still selects
+LEG_C = dict(arch="qwen3-moe-235b-a22b", n_layers=8, seq_len=1024,
+             lengths=(700, 706, 713, 720))
+# leg D: the dense path of the recurrent families at full width and depth
+# (~3.2 and ~5 GB of bf16 weights); recurrentgemma's prompts and tokens
+# stay within its local-attention cache (1,024 rows for these prompts)
+LEG_D = dict(archs=("rwkv6-1.6b", "recurrentgemma-2b"),
+             lengths=(500, 533, 566, 600))
+# leg D, prefill state vs the token-by-token chain of the eager decode step
+# on the card. The prompt's projections are (S, D) products and the
+# chain's (1, D) ones, which round some bf16 outputs an ulp apart; random
+# deep stacks carry that from layer to layer. On the first pattern of
+# layers: recurrent leaves within REC_TOL of the leaf's largest magnitude
+# (the CPU tests measure 0.5-0.8 % at reduced width), K/V rows of the
+# local-attention layers within KV_TOL (their inputs pass the recurrent
+# layers). At full depth, layer i within tol + slope * i (DEPTH_SLOPE):
+# on an H100 80GB HBM3 at 700 W the difference grew at most 0.0070 a
+# layer (rwkv6's recurrent leaves, 15 % at layer 23) and 0.0050
+# (recurrentgemma's K/V, 0.119 at layer 23). Lengths and position
+# exactly.
+REC_TOL = 0.05
+KV_TOL = 0.0625
+DEPTH_SLOPE = {"rec": (0.02, 0.0075), "kv": (KV_TOL, 0.005)}
+# the witness of that cause: the same prefill and chain with f32 weights,
+# activations and state, whose products round 2**16 times finer; every
+# layer's relative difference (recurrent leaves and K/V rows) within
+# WITNESS_TOL, the logits within WITNESS_LOGIT_TOL (the same H100 read
+# at most 7.1e-5 and 2.3e-4)
+WITNESS_TOL = 1e-3
+WITNESS_LOGIT_TOL = 1e-2
+# leg C, the fused eager run: every fused attention call against the
+# dispatch one on the same inputs (q, cache, table, pages), at the
+# kernel's own bf16 tolerances (KERNEL_TOL): the attention output after
+# the output projection within ATTN_REL_TOL of the dispatch one's largest
+# magnitude (a bf16(e) flip on a dominant weight moves it by up to 2**-8
+# of that weight's share; an H100 80GB HBM3 at 700 W read 0.0053), the
+# updated tables (EMA masses) within ATTN_TABLE_TOL (a wrong mask or
+# length moves a page's mass by ~1/640; the same H100 read 3e-8)
+ATTN_REL_TOL = KERNEL_TOL["bf16"]["out"]
+ATTN_TABLE_TOL = KERNEL_TOL["bf16"]["mass"]
+# leg C: a routing flip between the fused and dispatch runs comes from
+# rounding: at a request's first flip, the two runs' MoE inputs for its
+# row lie within this many bf16 ulps of the row's largest magnitude
+FLIP_INPUT_ULPS = 4
+# leg C: each recorded MoE output row against a plain per-assignment
+# reference in f32 (kept pairs only), as root-mean-square error over the
+# reference row's: the card rounds g, u, h, y and each of the k partial
+# sums to bf16 (2**-9 relative each); a dropped or wrongly kept
+# assignment moves a row by its gate (>= ~0.05 at top-8 of 128) times an
+# expert's output, a share of ~0.15
+MOE_REF_TOL = 2 ** -5
+
+
+def memory_line(torch, label):
+    """Device memory in use and reserved, after collecting garbage."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(phase="memory", at=label,
+               allocated_gb=torch.cuda.memory_allocated() / 1e9,
+               reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    emit(out)
+    return out
+
+
+@contextlib.contextmanager
+def moe_calls(moe, calls, batch):
+    """Keep ``(params, x, out)`` of every call of ``moe.moe_ffn`` over
+    ``batch`` rows (an eager run's waves, layer by layer)."""
+    plain = moe.moe_ffn
+
+    def recording(params, cfg, x):
+        out = plain(params, cfg, x)
+        if x.shape[0] == batch:
+            calls.append((params, x.clone(), out.clone()))
+        return out
+    moe.moe_ffn = recording
+    try:
+        yield
+    finally:
+        moe.moe_ffn = plain
+
+
+@contextlib.contextmanager
+def attend_pairs(torch, sectored_decode, rows):
+    """In a fused run, precede every fused ``sectored_attend`` call by the
+    dispatch one on the same inputs (both write the same new K/V row);
+    the fused call's results go on. Keeps per call the largest difference
+    of the two attention outputs over the dispatch one's largest
+    magnitude, and that of the two updated tables."""
+    plain = sectored_decode.sectored_attend
+
+    def paired(attn_params, cfg, x, cache, table_l, k_pages, probe=False,
+               kernel="dispatch"):
+        if kernel != "fused":
+            return plain(attn_params, cfg, x, cache, table_l, k_pages,
+                         probe=probe, kernel=kernel)
+        od, _, td = plain(attn_params, cfg, x, cache, table_l, k_pages,
+                          probe=probe, kernel="dispatch")
+        out = plain(attn_params, cfg, x, cache, table_l, k_pages,
+                    probe=probe, kernel="fused")
+        of, _, tf = out
+        rows.append(torch.stack([
+            (of.float() - od.float()).abs().max() / od.float().abs().max(),
+            (tf - td).abs().max()]))
+        return out
+    sectored_decode.sectored_attend = paired
+    try:
+        yield
+    finally:
+        sectored_decode.sectored_attend = plain
+
+
+def moe_reference(torch, moe, params, cfg, x):
+    """A plain per-assignment MoE over the rows ``x``: the f32 router's
+    top-k and their softmax gates; an assignment kept while its expert
+    holds fewer than ``cap`` of the earlier tokens' (the reference's
+    capacity, counted in token order); each kept pair's SwiGLU in f32 from
+    its expert's weights, times its gate, summed in f32. Returns (out
+    (T, D) f32, kept (T, k) as lists of bools)."""
+    import torch.nn.functional as F
+    e = cfg.moe
+    xt = x.reshape(-1, cfg.d_model)
+    T = xt.shape[0]
+    top, idx = torch.topk(torch.matmul(xt.float(), params["router"]),
+                          e.top_k, dim=-1)
+    gate = torch.softmax(top, dim=-1)
+    cap = int(T * e.top_k * moe.CAPACITY_FACTOR / e.n_experts) + 1
+    out = torch.zeros((T, cfg.d_model), dtype=torch.float32,
+                      device=x.device)
+    held, kept = {}, []
+    for t, experts in enumerate(idx.tolist()):
+        xf = xt[t].float()
+        row = []
+        for j, ex in enumerate(experts):
+            row.append(held.get(ex, 0) < cap)
+            held[ex] = held.get(ex, 0) + 1
+            if row[-1]:
+                h = (F.silu(xf @ params["w_gate"][ex].float())
+                     * (xf @ params["w_up"][ex].float()))
+                out[t] += gate[t, j] * (h @ params["w_down"][ex].float())
+        kept.append(row)
+    if e.n_shared_experts:
+        sh, xf = params["shared"], xt.float()
+        out += (F.silu(xf @ sh["w_gate"].float())
+                * (xf @ sh["w_up"].float())) @ sh["w_down"].float()
+    return out, kept
+
+
+def moe_layer_check(torch, moe, cfg, calls):
+    """Each recorded wave layer's MoE output on the card against
+    :func:`moe_reference` on the same rows (per row, the root-mean-square
+    error over the reference's), the assignments the card keeps against
+    the reference's, and the routing recomputed on the host (equal to
+    the card's, or a near tie of the f32 router logits); per call the
+    assignments the capacity drops."""
+    rows = []
+    for i, (params, x, out) in enumerate(calls):
+        ref, ref_kept = moe_reference(torch, moe, params, cfg, x)
+        xt = x.reshape(-1, x.shape[-1])
+        _, idx = moe.route(params, cfg, xt)
+        order, _, keep, _, _ = moe.dispatch(idx, cfg)
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        _, host_idx = moe.route({"router": params["router"].cpu()}, cfg,
+                                xt.cpu())
+        diff = out.reshape(ref.shape).float() - ref
+        rel = diff.square().mean(-1).sqrt() / ref.square().mean(-1).sqrt()
+        rows.append(dict(
+            wave=i // cfg.n_layers, layer=i % cfg.n_layers,
+            cap=moe.capacity(xt.shape[0], cfg),
+            assignments=int(keep.numel()), dropped=int((~keep).sum()),
+            ref_rms_rel_err=float(rel.max()),
+            ref_max_abs_err=float(diff.abs().max()),
+            kept_equal_ref=kept.reshape(idx.shape).tolist() == ref_kept,
+            routing_equal_host=bool(torch.equal(idx.cpu(), host_idx))))
+    return rows
+
+
+def bf16_ulp(value: float) -> float:
+    """The spacing of bf16 numbers at magnitude ``value``."""
+    return 2.0 ** (math.floor(math.log2(value)) - 7) if value > 0 else 0.0
+
+
+def routing_flips(torch, moe, cfg, fused_calls, dispatch_calls):
+    """Where the fused and dispatch eager runs route a token of a wave
+    differently: the two runs' MoE inputs differ by the attention's
+    rounding, and a router near tie turns that into another expert
+    (``experts``), or another row's flip changes which assignments the
+    capacity keeps (``drops``). Either moves the row's FFN output by
+    about a gate times an expert's output, far more than the rounding.
+    Returns the flips in wave order, each with the largest difference of
+    the two runs' inputs for the row (also in bf16 ulps of the row's
+    largest magnitude) and of their router logits, and the dispatch run's
+    gap between its k-th and (k+1)-th router logits: another expert set
+    needs that gap within twice the logits' difference."""
+    k = cfg.moe.top_k
+    flips = []
+    for i, ((params, xf, _), (_, xd, _)) in enumerate(
+            zip(fused_calls, dispatch_calls, strict=True)):
+        sides = []
+        for x in (xf, xd):
+            xt = x.reshape(-1, cfg.d_model)
+            _, idx = moe.route(params, cfg, xt)
+            order, _, keep, _, _ = moe.dispatch(idx, cfg)
+            kept = torch.empty_like(keep)
+            kept[order] = keep
+            sides.append((xt, idx.cpu().tolist(),
+                          kept.reshape(idx.shape).cpu().tolist()))
+        (xa, ia, ka), (xb, ib, kb) = sides
+        for t in range(len(ia)):
+            experts = set(ia[t]) != set(ib[t])
+            drops = ({e for e, kk in zip(ia[t], ka[t]) if kk}
+                     != {e for e, kk in zip(ib[t], kb[t]) if kk})
+            if not (experts or drops):
+                continue
+            lf = torch.matmul(xa[t].float(), params["router"])
+            ld = torch.matmul(xb[t].float(), params["router"])
+            top = torch.topk(ld, k + 1).values
+            diff = float((xa[t] - xb[t]).float().abs().max())
+            flips.append(dict(
+                wave=i // cfg.n_layers, layer=i % cfg.n_layers, row=t,
+                kind="experts" if experts else "drops",
+                input_max_abs_diff=diff,
+                input_ulps=diff / bf16_ulp(float(xb[t].float().abs()
+                                                 .max())),
+                router_logit_max_abs_diff=float((lf - ld).abs().max()),
+                dispatch_topk_gap=float(top[k - 1] - top[k])))
+    return flips
+
+
+def flip_checks(flips):
+    """Each flip from rounding: at each row's first flip the inputs within
+    FLIP_INPUT_ULPS; every ``experts`` flip at a router near tie (the
+    dispatch run's k-th to (k+1)-th gap within twice the two runs' logit
+    difference); every ``drops`` flip beside an ``experts`` flip of
+    an earlier row in the same wave and layer (an assignment's place in
+    its expert counts the earlier tokens' only). Returns ({row: wave of
+    its first flip}, checks)."""
+    first, first_ulps = {}, []
+    for f in flips:
+        if f["row"] not in first:
+            first[f["row"]] = f["wave"]
+            first_ulps.append(f["input_ulps"])
+    experts_at = {(f["wave"], f["layer"], f["row"]) for f in flips
+                  if f["kind"] == "experts"}
+    checks = dict(
+        first_flips_at_rounding=all(u <= FLIP_INPUT_ULPS
+                                    for u in first_ulps),
+        experts_flips_near_ties=all(
+            f["dispatch_topk_gap"] <= 2 * f["router_logit_max_abs_diff"]
+            for f in flips if f["kind"] == "experts"),
+        drops_flips_beside_experts_flips=all(
+            any(w == f["wave"] and layer == f["layer"] and r < f["row"]
+                for w, layer, r in experts_at)
+            for f in flips if f["kind"] == "drops"))
+    return first, checks
+
+
+def logits_before_flips(fused, dispatch, first_flip):
+    """The largest fused vs dispatch logit difference, and the count of
+    (request, wave) pairs compared, over each request's waves before its
+    first routing flip (``first_flip``: wave by slot, request r in slot
+    r) and before its stream parts (:func:`stream_divergence`)."""
+    worst, compared = 0.0, 0
+    for rid, (a, b) in enumerate(zip(fused["tokens"], dispatch["tokens"])):
+        p = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        # token i + 1 comes from wave i, fed tokens 0 .. i
+        for w in range(min(p, first_flip.get(rid, WAVES),
+                           len(fused["logits"][rid]))):
+            compared += 1
+            worst = max(worst, float((fused["logits"][rid][w]
+                                      - dispatch["logits"][rid][w]).abs()
+                                     .max()))
+    return worst, compared
+
+
+def moe_sectored(torch, np, sa, launch_serve, configs, model, moe, card,
+                 dev="cuda", cfg=None):
+    """Leg C: qwen3-moe (``LEG_C``) on the sectored main path, the fused
+    kernel and dispatch under ``AlwaysSectored``, each with graphs
+    (metered) and eagerly from one set of prefilled states. Gates: graph
+    == eager bitwise per flavor; each meter equal to the host replay
+    of its schedule, audit <= 1e-9 (:func:`meter_record`); in the fused
+    eager run every fused attention call within ATTN_REL_TOL (tables
+    ATTN_TABLE_TOL) of dispatch on the same inputs (:func:`attend_pairs`);
+    every routing flip between the two eager runs from rounding
+    (:func:`flip_checks`), and their logits within LOGIT_TOL over each
+    request's waves before its first flip, at least one such wave
+    compared, a stream that parts before it parting at a near tie of the
+    dispatch run's logits; paged launches = n_layers x waves; every
+    recorded MoE call of the fused eager run within MOE_REF_TOL of
+    :func:`moe_reference`, keeping the same assignments. ``cfg`` (a
+    reduced config, with ``dev="cpu"``) rehearses the leg on the CPU.
+    Returns (record, paged launches of the fused graph run)."""
+    import dataclasses
+
+    from repro_torch.runtime import sectored_decode
+    leg = LEG_C
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get(leg["arch"]),
+                                  n_layers=leg["n_layers"])
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefills, runs = {}, {}
+    calls = {"fused": [], "dispatch": []}
+    pairs = []
+    for kernel in ("fused", "dispatch"):
+        for graphs in (True, False):
+            with contextlib.ExitStack() as hooks:
+                # eager runs only: a wrapper inside a captured body would
+                # run once, at capture, and its copies at every replay
+                if not graphs:
+                    hooks.enter_context(moe_calls(moe, calls[kernel], 4))
+                    hooks.enter_context(attend_pairs(torch, sectored_decode,
+                                                     pairs))
+                sess, handles, rec, logits = serve_run(
+                    torch, np, sa, launch_serve, cfg, params, kernel,
+                    cfg.n_layers, prefills, graphs=graphs, record=not graphs,
+                    dev=dev, lengths=leg["lengths"], seq_len=leg["seq_len"],
+                    metered="sectored" if graphs else None,
+                    phase="moe_sectored_run")
+            runs[kernel, graphs] = dict(
+                rec=rec, tokens=[h.peek() for h in handles],
+                logprobs=[h.logprobs() for h in handles],
+                final=host_copy(torch, sess), logits=logits)
+            if rec["sectored_waves"] != rec["waves"]:
+                fail(f"moe_sectored {kernel}: {rec['sectored_waves']} of "
+                     f"{rec['waves']} waves sectored")
+            del sess, handles
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    layers = moe_layer_check(torch, moe, cfg, calls["fused"])
+    attn = (torch.stack(pairs).cpu().tolist() if pairs else [])
+    same = {k: same_results(torch, runs[k, True], runs[k, False])
+            for k in ("fused", "dispatch")}
+    fused, dispatch = runs["fused", False], runs["dispatch", False]
+    streams = stream_divergence(fused, dispatch)
+    flips = routing_flips(torch, moe, cfg, calls["fused"],
+                          calls["dispatch"])
+    first_flip, flip_ok = flip_checks(flips)
+    logit_err, compared = logits_before_flips(fused, dispatch, first_flip)
+    # a stream that parts before its first flip parts at a near tie
+    partings = [r for r in streams
+                if not r["agree"] and r["position"] - 1 < first_flip.get(
+                    r["rid"], WAVES)]
+    graph = runs["fused", True]["rec"]
+    out = dict(
+        phase="moe_sectored", card=card, arch=cfg.name,
+        n_layers=cfg.n_layers, cut=f"{cfg.n_layers} of 94 layers",
+        d_model=cfg.d_model, experts=cfg.moe.n_experts,
+        top_k=cfg.moe.top_k, seq_len=leg["seq_len"],
+        prompt_lengths=list(leg["lengths"]), init_params_s=init_s,
+        bitwise=same, attention_pairs=len(attn),
+        attention_rel_err_max=max((a for a, _ in attn), default=None),
+        attention_table_err_max=max((t for _, t in attn), default=None),
+        routing_flips=flips, first_flip_wave=first_flip,
+        flip_checks=flip_ok,
+        fused_vs_dispatch_logit_err_before_flip=logit_err,
+        logit_pairs_compared=compared,
+        fused_vs_dispatch_logit_err=logits_before_flips(
+            fused, dispatch, {})[0],
+        streams=streams, logit_tolerance=LOGIT_TOL,
+        moe_calls_checked=len(layers),
+        moe_ref_rms_rel_err_max=max(r["ref_rms_rel_err"] for r in layers),
+        moe_ref_max_abs_err_max=max(r["ref_max_abs_err"] for r in layers),
+        moe_layers=layers[:cfg.n_layers],
+        dropped_per_layer=[r["dropped"] for r in layers[:cfg.n_layers]],
+        dropped_per_call_max=max(r["dropped"] for r in layers),
+        prefill_s_by_prompt=graph["prefill_s_by_prompt"],
+        k_pages=graph["k_pages"], probe_pages=graph["probe_pages"],
+        padded_pages=graph["padded_pages"],
+        launches={k: runs[k, True]["rec"]["launches"]
+                  for k in ("fused", "dispatch")},
+        **{f"{k}_{'graph' if g else 'eager'}": dict(
+            later_waves_median_ms=runs[k, g]["rec"]["later_waves_median_ms"],
+            ms_per_wave=runs[k, g]["rec"]["ms_per_wave"],
+            first_wave_ms=runs[k, g]["rec"]["first_wave_ms"],
+            decode_tokens_per_s=runs[k, g]["rec"]["decode_tokens_per_s"],
+            peak_mem_gb=runs[k, g]["rec"]["peak_mem_gb"])
+           for k in ("fused", "dispatch") for g in (True, False)},
+        meter={k: {m: runs[k, True]["rec"]["meter"][m] for m in (
+            "j_per_token", "ns_per_token", "energy_j", "audit_checks",
+            "audit_max_rel_err", "host_replay_equal")}
+            for k in ("fused", "dispatch")})
+    emit(out)
+    fused_waves = runs["fused", False]["rec"]["sectored_waves"]
+    checks = dict(
+        graph_eager=all(all(v.values()) for v in same.values()),
+        attention_pairs=len(attn) == cfg.n_layers * fused_waves
+        and all(a <= ATTN_REL_TOL and t <= ATTN_TABLE_TOL for a, t in attn),
+        **flip_ok,
+        logits_compared=compared > 0,
+        logits=logit_err <= LOGIT_TOL,
+        partings_near_ties=all(r.get("dispatch_logit_gap", 0.0)
+                               <= 2 * LOGIT_TOL for r in partings),
+        moe_reference=len(layers) == cfg.n_layers * fused_waves
+        and all(r["ref_rms_rel_err"] <= MOE_REF_TOL and r["kept_equal_ref"]
+                for r in layers))
+    if not all(checks.values()):
+        fail(f"moe_sectored: {checks}")
+    launches = runs["fused", True]["rec"]["launches"]["bf16"]
+    del params
+    return out, launches
+
+
+def layer_errors(torch, cfg, a, b):
+    """Per layer, how far decode state ``a`` is from ``b``: the largest
+    difference of its recurrent leaves, or of its K/V rows, over the
+    largest magnitude of ``b``'s (at least 1); for K/V rows also the
+    largest difference itself."""
+    from repro_torch.runtime.graphs import leaves
+
+    def rel(x, y):
+        return (float((x.float() - y.float()).abs().max())
+                / max(float(y.float().abs().max()), 1.0))
+    rows = []
+    for i, kind in enumerate(cfg.layer_kinds):
+        row = dict(layer=i, kind=kind)
+        if kind == "attn":
+            ca, cb = a.layer_kv(i), b.layer_kv(i)
+            row["kv_max_abs_err"] = max(
+                float((x.float() - y.float()).abs().max())
+                for x, y in ((ca.k, cb.k), (ca.v, cb.v)))
+            row["kv_rel_err"] = max(rel(ca.k, cb.k), rel(ca.v, cb.v))
+            row["kv_bitwise"] = bool(torch.equal(ca.k, cb.k)
+                                     and torch.equal(ca.v, cb.v))
+        else:
+            row["rec_rel_err"] = max(
+                rel(x, y) for x, y in zip(leaves(a.layer_rec(i)),
+                                          leaves(b.layer_rec(i)),
+                                          strict=True))
+        rows.append(row)
+    return rows
+
+
+def chain_check(torch, np, model, cfg, params, prompt, dev, *, bound,
+                logit_tol=LOGIT_TOL, gate_logits=True, dtype=None,
+                new=NEW_TOKENS):
+    """The prefill's state against a token-by-token chain of the eager
+    decode step over the same prompt (batch 1), then ``new`` greedy
+    tokens from each, fed their own argmax. ``dtype`` (float32 for the
+    witness) casts the weights and sets the state's dtype.
+
+    Gated: lengths and position equal; every layer's error
+    (:func:`layer_errors`) within ``bound(kind, layer)``, where kind is
+    ``"rec"`` (relative, recurrent leaves) or ``"kv"`` (K/V rows: absolute
+    for bf16, relative for the witness). With ``gate_logits``, the logits
+    within ``logit_tol`` until the streams part, and a parting only where
+    the chain's two logits lie within 2 x ``logit_tol``."""
+    from repro_torch.runtime.graphs import map_tree
+    state_dtype = torch.bfloat16
+    if dtype is not None:
+        params = map_tree(lambda t: t.to(dtype), params)
+        state_dtype = dtype
+    toks = torch.from_numpy(np.asarray(prompt, np.int32)[None]).to(dev)
+    t0 = time.perf_counter()
+    pre_logits, pre_state = model.prefill(params, cfg, toks, state_dtype)
+    chain = model.init_decode_state(cfg, 1, toks.shape[1], state_dtype,
+                                    device=dev)
+    for i in range(toks.shape[1]):
+        logits = model.decode_step_(params, cfg, chain, toks[:, i:i + 1])
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    by_layer = layer_errors(torch, cfg, pre_state, chain)
+    kv_key = "kv_max_abs_err" if dtype is None else "kv_rel_err"
+    exact = dict(
+        lengths=all(torch.equal(a.length, b.length) for a, b in zip(
+            pre_state.caches(), chain.caches(), strict=True)),
+        position=bool(torch.equal(pre_state.position, chain.position)))
+    worst = float((pre_logits.float() - logits.float()).abs().max())
+    states, lg = [pre_state.clone(), chain], [pre_logits, logits]
+    compared, parted = 0, None
+    for step in range(new):
+        tok = [int(torch.argmax(x[0].float())) for x in lg]
+        if tok[0] != tok[1]:
+            row = lg[1][0].float()
+            parted = dict(position=step, tokens=tok,
+                          chain_gap=float(row[tok[1]] - row[tok[0]]))
+            break
+        compared += 1
+        worst = max(worst, float((lg[0].float() - lg[1].float()).abs()
+                                 .max()))
+        t = torch.tensor([[tok[0]]], dtype=torch.int32, device=dev)
+        lg = [model.decode_step_(params, cfg, s, t) for s in states]
+    ok = all(exact.values()) and all(
+        r[kv_key] <= bound("kv", r["layer"]) if r["kind"] == "attn"
+        else r["rec_rel_err"] <= bound("rec", r["layer"]) for r in by_layer)
+    if gate_logits:
+        ok = ok and worst <= logit_tol and (
+            parted is None or parted["chain_gap"] <= 2 * logit_tol)
+    return dict(n_layers=cfg.n_layers, dtype=str(state_dtype),
+                prompt_len=int(toks.shape[1]), chain_s=chain_s,
+                layers=by_layer, exact=exact, logit_err=worst,
+                logits_gated=gate_logits, greedy_compared=compared,
+                parted=parted, ok=ok)
+
+
+def depth_bound(kind, layer):
+    """The full-depth bf16 gate: ``tol + slope * layer`` (DEPTH_SLOPE)."""
+    tol, slope = DEPTH_SLOPE[kind]
+    return tol + slope * layer
+
+
+def dense_families(torch, np, sa, launch_serve, configs, model, card,
+                   dev="cuda", cfgs=None):
+    """Leg D: rwkv6-1.6b and recurrentgemma-2b (``LEG_D``) at full width
+    and depth on the dense path: the 4 greedy prompts served with graphs,
+    then eagerly from the same prefilled states, held bitwise; the first
+    prompt's prefill state held to the eager token-by-token chain
+    (:func:`chain_check`) at full depth (every layer within
+    :func:`depth_bound`), again with f32 weights and state (every layer
+    within WITNESS_TOL, the logits within WITNESS_LOGIT_TOL: the witness
+    that the bf16 gap is rounding), and on the first pattern of layers
+    (every layer within REC_TOL / KV_TOL, the logits within LOGIT_TOL).
+    ``cfgs`` (reduced configs, with ``dev="cpu"``) rehearses the leg on
+    the CPU."""
+    out = dict(phase="dense_families", card=card, families={})
+    for cfg in cfgs or [configs.get(a) for a in LEG_D["archs"]]:
+        t0 = time.perf_counter()
+        params = model.init_params(cfg, seed=0, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prefills, runs = {}, {}
+        for graphs in (True, False):
+            sess, handles, rec, _ = serve_run(
+                torch, np, sa, launch_serve, cfg, params, "dispatch",
+                cfg.n_layers, prefills, graphs=graphs, dense=True, dev=dev,
+                lengths=LEG_D["lengths"], phase="dense_family_run")
+            runs[graphs] = dict(rec=rec, tokens=[h.peek() for h in handles],
+                                logprobs=[h.logprobs() for h in handles],
+                                final=host_copy(torch, sess))
+            prompt = handles[0].request.prompt
+            del sess, handles
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+        del prefills
+        same = same_results(torch, runs[True], runs[False])
+        chain = chain_check(torch, np, model, cfg, params, prompt, dev,
+                            bound=depth_bound, gate_logits=False)
+        witness = chain_check(torch, np, model, cfg, params, prompt, dev,
+                              bound=lambda kind, layer: WITNESS_TOL,
+                              logit_tol=WITNESS_LOGIT_TOL,
+                              dtype=torch.float32)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        shallow_cfg, shallow_params = first_layers(
+            cfg, params, len(cfg.layer_pattern) or 2)
+        shallow = chain_check(
+            torch, np, model, shallow_cfg, shallow_params, prompt, dev,
+            bound=lambda kind, layer: REC_TOL if kind == "rec" else KV_TOL)
+        graph, eager = runs[True]["rec"], runs[False]["rec"]
+        fam = dict(
+            n_layers=cfg.n_layers, d_model=cfg.d_model,
+            layer_kinds=sorted(set(cfg.layer_kinds)),
+            init_params_s=init_s, bitwise=same, chain=chain,
+            f32_witness=witness, shallow_chain=shallow,
+            prefill_s_by_prompt=graph["prefill_s_by_prompt"],
+            graph=dict(later_waves_median_ms=graph["later_waves_median_ms"],
+                       ms_per_wave=graph["ms_per_wave"],
+                       first_wave_ms=graph["first_wave_ms"],
+                       decode_tokens_per_s=graph["decode_tokens_per_s"],
+                       peak_mem_gb=graph["peak_mem_gb"]),
+            eager=dict(later_waves_median_ms=eager["later_waves_median_ms"],
+                       peak_mem_gb=eager["peak_mem_gb"]))
+        out["families"][cfg.name] = fam
+        emit(dict(phase="dense_family", card=card, arch=cfg.name, **fam))
+        if not (all(same.values()) and chain["ok"] and witness["ok"]
+                and shallow["ok"]):
+            fail(f"dense_families {cfg.name}: graph == eager {same}, "
+                 f"chain {chain}, f32 witness {witness}, shallow chain "
+                 f"{shallow}")
+        del params
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -1961,7 +2602,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import sectored_attention as sa
     from repro_torch.kernels import vbl_gather
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
     from repro_torch.runtime import sectored_decode
 
     records = []
@@ -2004,19 +2645,35 @@ def main(argv=None) -> int:
         path_records, launches = main_path(torch, np, sa, launch_serve, cfg,
                                            params, card)
         records += path_records
+        # legs A and B at LEG_AB_LAYERS of the 32 layers (views of the
+        # main path's weights), to keep the script within its time
+        cut, cut_params = first_layers(cfg, params, LEG_AB_LAYERS)
         t0 = time.perf_counter()
-        records.append(serve_layer_exact(torch, np, sa, launch_serve, cfg,
-                                         params, card))
+        records.append(serve_layer_exact(torch, np, sa, launch_serve, cut,
+                                         cut_params, card))
         torch.cuda.empty_cache()
         leg_b, leg_b_launches = serve_layer_fused(torch, np, sa, launch_serve,
-                                                  cfg, params, card)
+                                                  cut, cut_params, card)
         records.append(leg_b)
         launches["bf16"] += leg_b_launches
         records.append(dict(phase="serve_layer_seconds",
                             seconds=time.perf_counter() - t0))
         emit(records[-1])
-        del params
-        torch.cuda.empty_cache()
+        del params, cut_params
+        records.append(memory_line(torch, "after the yi-6b legs"))
+
+        t0 = time.perf_counter()
+        leg_c, leg_c_launches = moe_sectored(torch, np, sa, launch_serve,
+                                             configs, model, moe, card)
+        records.append(dict(leg_c, seconds=time.perf_counter() - t0))
+        launches["bf16"] += leg_c_launches
+        records.append(memory_line(torch, "after leg C"))
+        t0 = time.perf_counter()
+        records.append(dense_families(torch, np, sa, launch_serve, configs,
+                                      model, card))
+        records.append(dict(phase="dense_families_seconds",
+                            seconds=time.perf_counter() - t0))
+        emit(records[-1])
         records.append(q8_reduced_check(torch, np, configs, model,
                                         sectored_decode, quantized_kv))
 
@@ -2063,6 +2720,20 @@ def main(argv=None) -> int:
         emit(records[-1])
         if stats["completed"] != 4:
             fail(f"dense sampled CLI run: {stats}")
+        # the other families as the CLI serves them, on the card by default
+        for argv in (["--arch", "qwen3-moe-235b-a22b", "--true-sectored",
+                      "--fused-kernel", "--policy", "sectored"],
+                     ["--arch", "rwkv6-1.6b"],
+                     ["--arch", "recurrentgemma-2b"]):
+            sa.reset_launches()
+            stats = launch_serve.main([*argv, "--reduced", "--requests", "4",
+                                       "--max-new-tokens", "4"])
+            records.append(dict(phase="cli_family", argv=argv, stats=stats,
+                                launches=dict(sa.launches)))
+            emit(records[-1])
+            if stats["completed"] != 4 or (
+                    ("--fused-kernel" in argv) != (sa.launches["bf16"] > 0)):
+                fail(f"CLI run {argv}: {stats}, launches {sa.launches}")
 
     kernels = []
     for flavor in ("bf16", "int8"):
@@ -2071,8 +2742,9 @@ def main(argv=None) -> int:
             name=f"sectored_attention_paged_{flavor}", route="cuda",
             source=KERNEL_SOURCE, replaces=TPU_KERNEL,
             path=("serving main path, CUDA graph replays: the greedy "
-                  "fused leg, the two sampled graph legs and the two "
-                  "serve_layer_fused runs" if flavor == "bf16"
+                  "fused leg, the two sampled graph legs, the two "
+                  "serve_layer_fused runs and leg C's fused run "
+                  "(qwen3-moe, rep = 16)" if flavor == "bf16"
                   else "serving main path, CUDA graph replays"),
             launches=launches[flavor], max_abs_err=worst[flavor],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

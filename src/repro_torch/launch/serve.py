@@ -79,9 +79,12 @@ POLICIES = {"hysteresis": HysteresisPolicy, "dense": AlwaysDense,
 
 class DenseBackend(ServingBackend):
     """The dense DecodeState data path (the reference's ``build_backend``
-    without ``--true-sectored``): prefill is ``model.prefill``, decode is
-    ``model.decode_step``, and the "sectored" step is that same decode
-    (the policy's toggle then changes nothing but the stats).
+    without ``--true-sectored``), for every family: prefill is
+    ``model.prefill``, decode is ``model.decode_step``, and for uniform
+    attention stacks the "sectored" step is that same decode (the
+    policy's toggle then changes nothing but the stats); an
+    attention-free or hybrid stack has no sectored step, as in the
+    reference.
 
     On the card (``graphs=True``) the decode step and the session's waves
     over it replay captured CUDA graphs in one memory pool, where the
@@ -92,7 +95,6 @@ class DenseBackend(ServingBackend):
 
     def __init__(self, cfg, params, *, sectored: bool = True, device=None,
                  graphs: bool = True):
-        model._check_supported(cfg)
         self.device = kbackend.resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -102,8 +104,19 @@ class DenseBackend(ServingBackend):
         def step_(state, token):
             return model.decode_step_(params, cfg, state, token)
         decode = Step(step_, graphs=self.graphs, pool=self.pool)
+        sectored = sectored and not cfg.attn_free and not cfg.layer_pattern
         super().__init__(self._prefill, decode, decode if sectored else None,
                          vocab=cfg.vocab, device=self.device)
+
+    def token_capacity(self, prompt_len: int) -> int | None:
+        """The most tokens (prompt plus generated) a request's state
+        holds: a hybrid's local-attention cache rows, None where the
+        state grows with the prompt's padding. Past its rows the
+        reference's one-hot append silently writes nothing, so the
+        session refuses such a request at submit."""
+        if self.cfg.uniform_layers or self.cfg.attn_free:
+            return None
+        return model.local_cache_rows(self.cfg, prompt_len)
 
     def _prefill(self, tokens):
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32,

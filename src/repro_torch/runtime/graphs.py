@@ -48,32 +48,48 @@ KERNEL_COUNTERS = (sectored_attention.launches,
                    vbl_gather.launches, flash_attention.launches)
 
 
-# -- trees of tensors (dataclasses, tuples) -----------------------------------
+# -- trees of tensors (dataclasses, dicts, tuples, lists) ---------------------
+#
+# A dict is walked in sorted-key order, so two trees of the same structure
+# give their tensors in the same order; ``None`` (a hybrid stack's slot of
+# the other layer kind) holds no tensor and maps to itself.
 
 
 def leaves(tree):
-    """The tensors of a dataclass / tuple / list tree, in field order."""
+    """The tensors of a dataclass / dict / tuple / list tree, in field
+    (dict: sorted-key) order."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif dataclasses.is_dataclass(tree):
         for f in dataclasses.fields(tree):
             yield from leaves(getattr(tree, f.name))
+    elif isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from leaves(tree[key])
     elif isinstance(tree, (tuple, list)):
         for item in tree:
             yield from leaves(item)
 
 
-def clone_tree(tree):
-    """A copy of ``tree`` with every tensor cloned."""
+def map_tree(fn, tree):
+    """``tree`` with every tensor ``t`` replaced by ``fn(t)``; the
+    structure (dataclasses, dicts, tuples, lists, ``None``) is kept."""
     if isinstance(tree, torch.Tensor):
-        return tree.clone()
+        return fn(tree)
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
-            f.name: clone_tree(getattr(tree, f.name))
+            f.name: map_tree(fn, getattr(tree, f.name))
             for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {key: map_tree(fn, item) for key, item in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(clone_tree(item) for item in tree)
+        return type(tree)(map_tree(fn, item) for item in tree)
     return tree
+
+
+def clone_tree(tree):
+    """A copy of ``tree`` with every tensor cloned."""
+    return map_tree(torch.clone, tree)
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:

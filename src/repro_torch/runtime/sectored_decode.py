@@ -16,6 +16,9 @@ pages and attends with plain torch ops; ``"fused"`` calls
 on the GPU, its plain version on the CPU, where it is bitwise the
 dispatch path; ``"fused_q8"`` feeds that kernel per-sector int8 KV.
 
+The layer body is the reference's: attention, then SwiGLU or, for a MoE
+config, ``models.moe.moe_ffn`` (``model.ffn``).
+
 Port notes:
 
 * the reference's ``lax.scan`` over layers is a Python loop over the
@@ -135,9 +138,19 @@ class SectoredState:
         self.position[slot] = row.position[0]
 
 
+def check_uniform(cfg) -> None:
+    """Sectored decode pages the KV cache of uniform attention layers
+    (dense or MoE FFN); an attention-free or hybrid stack has none to
+    page."""
+    if not cfg.uniform_layers:
+        raise ValueError(
+            f"sectored decode needs uniform attention layers; arch "
+            f"{cfg.name!r} is attention-free or hybrid")
+
+
 def init_state(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device=None) -> SectoredState:
-    model._check_supported(cfg)
+    check_uniform(cfg)
     dev = backend.resolve_device(device)
     pages = padded_pages(seq_len)
     shape = (cfg.n_layers, batch, pages * PAGE_SIZE, cfg.n_kv_heads,
@@ -236,7 +249,6 @@ def sectored_decode_step_(params, cfg, state: SectoredState, token,
     ``state``; no buffer of it moves and nothing syncs with the host, so a
     CUDA graph can capture the step.
     """
-    model._check_supported(cfg)
     x = layers.embed(params, token)
     for i in range(cfg.n_layers):
         lp = model.layer_params(params, i)
@@ -250,7 +262,7 @@ def sectored_decode_step_(params, cfg, state: SectoredState, token,
         state.table[i].copy_(table_new)
         x = x + att
         h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + layers.swiglu(lp["mlp"], h)
+        x = x + model.ffn(lp, cfg, h)
     hidden = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     state.position.add_(1)
     return model.logits_fn(params, cfg, hidden)[:, 0, :]
@@ -320,7 +332,7 @@ class SectoredKVBackend(ServingBackend):
         if kernel not in self.KERNELS:
             raise ValueError(f"kernel must be one of {self.KERNELS}; "
                              f"got {kernel!r}")
-        model._check_supported(cfg)
+        check_uniform(cfg)
         self.device = backend.resolve_device(device)
         self.cfg = cfg
         self.params = params

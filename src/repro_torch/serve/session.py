@@ -382,6 +382,14 @@ class ServeSession:
             raise ValueError(
                 f"request {request.rid}: stop tokens {bad} outside vocab "
                 f"({bound}) — they could never match an emitted token")
+        capacity = getattr(self.backend, "token_capacity", None)
+        rows = capacity(prompt.size) if capacity is not None else None
+        if rows is not None and prompt.size + request.max_new_tokens > rows:
+            raise ValueError(
+                f"request {request.rid}: {prompt.size} prompt + "
+                f"{request.max_new_tokens} new tokens exceed the "
+                f"{rows}-token attention cache its state holds (past it "
+                f"an append would write nothing)")
         if self.page_pool is not None:
             worst = self.page_pool.pages_for(
                 prompt.size + request.max_new_tokens)

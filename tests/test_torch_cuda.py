@@ -63,7 +63,9 @@ def _case(gpu, B, Hkv, rep, hd, P, K, lengths, shared=False, seed=0):
          shared=True),
     dict(B=3, Hkv=2, rep=2, hd=32, P=4, K=4, lengths=[1, 256, 512]),
     dict(B=2, Hkv=1, rep=16, hd=256, P=3, K=2, lengths=[200, 300]),
-], ids=["serving", "shared", "k_eq_p_hd32", "rep16_hd256"])
+    dict(B=4, Hkv=4, rep=16, hd=128, P=16, K=5,
+         lengths=[701, 733, 1, 2048]),
+], ids=["serving", "shared", "k_eq_p_hd32", "rep16_hd256", "moe_rep16"])
 def test_kernel_matches_plain(gpu, flavor, shape):
     q, kp, vp, idx, length = _case(gpu, **shape)
     kwargs = {}
@@ -635,6 +637,33 @@ def test_sampled_and_greedy_waves_replay_bitwise_eager(gpu, path):
         assert all(torch.equal(a, b) for a, b in zip(fg, fe))
     greedy, mixed = out["greedy", True][0], out["mixed", True][0]
     assert greedy[1] == mixed[1] and greedy[3] == mixed[3]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "rwkv6-1.6b",
+                                  "recurrentgemma-2b"])
+def test_family_waves_replay_bitwise_eager(gpu, arch):
+    """The MoE config on the fused sectored path (64/4 heads: rep = 16,
+    as at full width) and the recurrent families on the dense path: a
+    session whose waves replay captured graphs equals the eager session
+    bitwise (tokens, logprobs, final wave buffer and sampler rows)."""
+    moe = arch.startswith("qwen3-moe")
+    cfg = configs.get(arch).reduced(
+        **(dict(n_heads=16, n_kv_heads=1) if moe else {}))
+    params = model.init_params(cfg, seed=0, device=gpu)
+    lengths = (126, 127, 200, 230)
+    out = {}
+    for g in (True, False):
+        sess = launch_serve.build_session(
+            cfg, params, true_sectored=moe,
+            kernel="fused" if moe else "dispatch",
+            policy="sectored" if moe else "dense", seq_len=768, device=gpu,
+            graphs=g)
+        sectored_attention.reset_launches()
+        out[g] = _serve(sess, cfg, [None] * 4, lengths)
+        assert (sectored_attention.launches["bf16"] > 0) == moe
+    (tg, lg, fg), (te, le, fe) = out[True], out[False]
+    assert tg == te and lg == le
+    assert all(torch.equal(a, b) for a, b in zip(fg, fe))
 
 
 def _layer_streams(gpu, cfg, params, fuse_wave=True, **kw):

@@ -13,7 +13,10 @@ path rests on, with an eager stand-in where a capture would be:
   graph that replays eagerly) keeps one wave buffer and one set of
   sampler rows for its whole life, gives the reference's greedy streams
   and stats, and is bitwise the eager session; so are a sampled wave
-  (greedy and sampled requests sharing it) and the dense path's waves;
+  (greedy and sampled requests sharing it) and the dense path's waves,
+  the recurrent families' dense waves and a MoE config's fused waves;
+* the tree walk under all of it covers dicts and ``None`` (recurrent and
+  hybrid decode states);
 * the in-place ``SamplerRows`` operations and the in-place wave equal
   their functional forms;
 * replay launch accounting, through a stand-in counter.
@@ -31,7 +34,9 @@ from repro.runtime import sectored_decode as jsd
 from repro.serve import AlwaysSectored as JAlwaysSectored
 from repro.serve import Request as JRequest
 from repro.serve import ServeSession as JServeSession
+from repro_torch import configs
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import model
 from repro_torch.runtime import graphs, sectored_decode
 from repro_torch.sample import SamplerRows, SamplerSpec
 from repro_torch.serve import (AlwaysDense, AlwaysSectored, Request,
@@ -417,3 +422,72 @@ def test_copy_tree_skips_shared_buffers():
     assert a.table.tolist() == [1.0] * 4 and a.kv.length.tolist() == [3, 3]
     a.zero_()
     assert all(int(t.count_nonzero()) == 0 for t in graphs.leaves(a))
+
+
+def test_tree_walk_covers_dicts_and_none():
+    """A decode state holding a dict (an RWKV layer's state) and a None
+    (a hybrid's layer of the other kind) round-trips through
+    ``clone_tree`` / ``copy_tree_``, dict leaves in sorted-key order, and
+    a dict leaf of another shape changes ``state_signature``."""
+    from repro_torch.serve.session import state_signature
+
+    def state(width):
+        return model.DecodeState(
+            kv=[None, None],
+            rec=[dict(S=torch.arange(4.0).reshape(1, 2, 2),
+                      prev_tmix=torch.ones((1, width)),
+                      prev_cmix=torch.zeros((1, width))), None],
+            position=torch.zeros(1, dtype=torch.int32))
+    a = state(3)
+    assert [tuple(t.shape) for t in graphs.leaves(a)] == [
+        (1, 2, 2), (1, 3), (1, 3), (1,)]
+    b = graphs.clone_tree(a)
+    assert b.rec[1] is None and b.kv == [None, None]
+    assert b.rec[0]["S"].data_ptr() != a.rec[0]["S"].data_ptr()
+    _assert_states_equal(a, b)
+    b.rec[0]["prev_cmix"].fill_(7.0)
+    b.rec[0]["S"].neg_()
+    graphs.copy_tree_(a, b)
+    assert a.rec[0]["prev_cmix"].eq(7.0).all()
+    _assert_states_equal(a, b)
+    assert state_signature(a) == state_signature(state(3))
+    assert state_signature(a) != state_signature(state(5))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_recurrent_dense_session_on_static_buffers(arch, monkeypatch):
+    """The recurrent families' dense waves (greedy and sampled), replayed
+    through the stand-in graph, are bitwise the eager ones: the captured
+    wave writes the recurrent states in place."""
+    cfg = configs.get(arch).reduced()
+    params = model.init_params(cfg, device="cpu")
+    prompts = [p[:20 + 7 * i] for i, p in enumerate(_prompts(cfg.vocab))]
+
+    def make(captured):
+        backend = launch_serve.build_backend(cfg, params, device="cpu")
+        if captured:
+            monkeypatch.setattr(graphs, "CapturedStep", StandInCapture)
+            backend.graphs = backend.decode_fn.graphs = True
+        return ServeSession(backend, max_batch=4, policy=AlwaysDense())
+    for specs in ([None] * 4, _sampled_specs()):
+        _, _, sess, _ = _serve_both_ways(make, prompts, specs)
+        assert len(sess._wave_cache) == 1
+        assert any(t.any() for t in graphs.leaves(sess.batched.rec))
+
+
+def test_sectored_moe_session_on_static_buffers(monkeypatch):
+    """The MoE config on the sectored fused path: its waves, replayed
+    through the stand-in graph, are bitwise the eager ones."""
+    cfg = configs.get("qwen3-moe-235b-a22b").reduced()
+    params = model.init_params(cfg, device="cpu")
+    prompts = [p[:20 + 3 * i] for i, p in enumerate(_prompts(cfg.vocab))]
+
+    def make(captured):
+        backend = launch_serve.build_backend(
+            cfg, params, true_sectored=True, seq_len=SEQ_LEN,
+            kernel="fused", device="cpu")
+        if captured:
+            _stand_in_graphs(backend, monkeypatch)
+        return ServeSession(backend, max_batch=4, policy=AlwaysSectored())
+    _, _, sess, _ = _serve_both_ways(make, prompts, [None] * 4)
+    assert sess.stats["sectored_waves"] == sess.stats["waves"] > 0

@@ -131,11 +131,32 @@ def test_decode_step_teacher_forced(small):
     np.testing.assert_array_equal(f32(tstate.kv.k[0]), f32(jstate.kv.k[0]))
 
 
-def test_unsupported_families_raise():
-    for name in ("qwen3-moe-235b-a22b", "rwkv6-1.6b", "recurrentgemma-2b"):
+def test_every_family_builds_and_true_sectored_refuses_recurrent():
+    """All ten configs build and step; ``--true-sectored`` still refuses
+    the attention-free and hybrid families with the reference's
+    ``ValueError`` (they have no KV cache to page), and accepts MoE."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as launch_serve
+
+    for name in configs.ARCHS:
         cfg = configs.get(name).reduced()
-        with pytest.raises(NotImplementedError, match="later slice"):
-            model.init_params(cfg, device="cpu")
+        params = model.init_params(cfg, device="cpu")
+        logits, state = model.prefill(params, cfg,
+                                      torch.zeros((1, 3), dtype=torch.int32))
+        assert logits.shape == (1, cfg.vocab)
+        assert model.decode_step_(params, cfg, state, torch.zeros(
+            (1, 1), dtype=torch.int32)).shape == (1, cfg.vocab)
+        if cfg.uniform_layers:
+            launch_serve.build_backend(cfg, params, true_sectored=True,
+                                       device="cpu")
+            continue
+        jcfg = jconfigs.get(name).reduced()
+        with pytest.raises(ValueError) as want:
+            jserve.build_backend(jcfg, None, true_sectored=True)
+        with pytest.raises(ValueError) as got:
+            launch_serve.build_backend(cfg, params, true_sectored=True,
+                                       device="cpu")
+        assert str(got.value) == str(want.value)
 
 
 def test_configs_match_reference():
