@@ -108,6 +108,14 @@ one JSON line:
    weights and state (the witness that the bf16 gap is rounding; every
    layer within WITNESS_TOL), and on the first pattern of layers
    (REC_TOL, KV_TOL, greedy streams parting only at a near tie);
+3d. ``paper_sim`` — the DRAM simulator on the host (``repro_torch.launch
+   .paper``): every paper table (Figs. 3, 9, 10, 11, 13, 14, 15 and
+   Table 4) at the reference's default sizes, its rows held character for
+   character to the reference's (PAPER_ROWS), and the first high mix's
+   sectored and baseline runs held to the reference's request, ACT and
+   time counts and float32 energy bits (PAPER_RUNS); each table's seconds,
+   DRAM requests and microseconds per request, with ``numpy.__version__``.
+   It runs right after the kernel phases;
 4. cli — ``repro_torch.launch.serve.main`` (reduced config): with
    ``--telemetry`` (it prints the energy table); with the serving layer's
    flags (``--scheduler overlap --kv-pages --prefix-cache --shared-prefix
@@ -190,6 +198,87 @@ SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
 GUMBEL_ULPS = 4
 RNG_SEEDS = (0, 1, 3, 2**31, 2**32 - 1)
 RNG_POSITIONS = (0, 1, 2, 127, 4095)
+
+
+# The paper_sim phase: the DRAM simulator's paper tables at the reference's
+# default sizes (200,000 instructions a core, 6 high-MPKI mixes of 8 cores
+# for Fig. 13, 4 for Fig. 14, 3 a category for Fig. 15), held to the
+# reference's own rows. They were made by running the JAX package's
+# ``benchmarks/paper_tables.py`` with its traces seeded by the port's stable
+# ``name_salt`` (the reference's ``hash(name)`` changes per process), and
+# must match character for character (the timing column aside).
+FIG15_TARGET = "(paper: dynamic >= 1.0 for med/low)"
+PAPER_ROWS = {
+    "fig3": [
+        ("fig3.access_energy_coarse_over_fine", "1.654 (paper 1.27)"),
+        ("fig3.act_energy_coarse_over_fine", "1.074 (paper 1.04)"),
+        ("fig3.data_movement_increase", "97.79% (paper 45%)"),
+    ],
+    "fig9": [
+        ("fig9.act_power_8sector", "1.0026 (paper <=1.0026)"),
+        ("fig9.act_power_4sector", "0.9300 (paper <=1.0026)"),
+        ("fig9.act_power_2sector", "0.8937 (paper <=1.0026)"),
+        ("fig9.act_power_1sector", "0.8756 (paper 0.873)"),
+        ("fig9.act_array_power_1sector", "0.335 (paper 0.335)"),
+        ("fig9.rd_power_1sector", "0.300 (paper 0.300)"),
+        ("fig9.wr_power_1sector", "0.294 (paper 0.294)"),
+        ("fig9.sector_logic_act_overhead", "0.0026 (paper 0.0026)"),
+    ],
+    "fig10": [
+        ("fig10.basic_mpki_ratio", "3.26x (paper 3.08x)"),
+        ("fig10.extra_miss_reduction_LA16", "34.6% (paper 39%)"),
+        ("fig10.extra_miss_reduction_LA128", "54.1% (paper 65%)"),
+        ("fig10.extra_miss_reduction_LA2048", "80.0% (paper 83%)"),
+        ("fig10.extra_miss_reduction_SP512", "78.3% (paper -)"),
+        ("fig10.extra_miss_reduction_LA128-SP512", "89.4% (paper 82%)"),
+    ],
+    "fig11": [
+        ("fig11.ligraPageRank.4core", "pspeedup 0.925x sysenergy 1.080"),
+        ("fig11.ligraPageRank.16core", "pspeedup 1.689x sysenergy 0.663"),
+        ("fig11.libquantum-2006.4core", "pspeedup 1.184x sysenergy 0.893"),
+        ("fig11.libquantum-2006.16core", "pspeedup 1.466x sysenergy 0.732"),
+        ("fig11.omnetpp-2006.4core", "pspeedup 0.974x sysenergy 1.023"),
+        ("fig11.omnetpp-2006.16core", "pspeedup 1.619x sysenergy 0.735"),
+        ("fig11.bzip2-2006.4core", "pspeedup 0.999x sysenergy 1.011"),
+        ("fig11.bzip2-2006.16core", "pspeedup 0.999x sysenergy 1.012"),
+    ],
+    "fig13": [
+        ("fig13.sectored", "WS 1.271 E 0.818 minE 0.795 (paper 1.17/-20%)"),
+        ("fig13.fga", "WS 0.076 E 7.661 minE 7.378 (paper 0.57)"),
+        ("fig13.pra", "WS 1.270 E 0.831 minE 0.816 (paper 1.06)"),
+        ("fig13.halfdram", "WS 1.001 E 0.986 minE 0.981 (paper 1.31)"),
+        ("fig13.burst-chop", "WS 1.325 E 0.811 minE 0.793 (paper 0.95/-18%)"),
+        ("fig13.dgms", "WS 0.516 E 1.467 minE 1.418 (paper 0.77)"),
+    ],
+    "fig14": [
+        ("fig14.rdwr_energy", "0.657 (paper 0.49)"),
+        ("fig14.act_energy", "1.100 (paper 0.94)"),
+        ("fig14.system_energy", "0.859 (paper 0.86)"),
+    ],
+    "fig15": [
+        ("fig15.high", "alwaysON 1.318 dynamic 1.318 " + FIG15_TARGET),
+        ("fig15.medium", "alwaysON 1.016 dynamic 1.016 " + FIG15_TARGET),
+        ("fig15.low", "alwaysON 0.998 dynamic 1.000 " + FIG15_TARGET),
+    ],
+    "tab4": [
+        ("tab4.sd_bank_overhead", "0.0226 (paper 0.0226)"),
+        ("tab4.sd_chip_overhead", "0.0172 (paper 0.0172)"),
+        ("tab4.sd_chip_mm2", "0.378 (paper 0.39)"),
+        ("tab4.sd_16sector", "0.0178 (paper 0.0178)"),
+        ("tab4.halfdram", "0.0260 (paper 0.026)"),
+        ("tab4.halfpage", "0.0519 (paper 0.052)"),
+        ("tab4.processor", "0.0120 (paper 0.0122)"),
+    ],
+}
+# The sectored and coarse-grained runs of the first high mix under the same
+# seeding: request and ACT counts, total time and the float32 energy sums'
+# bit patterns.
+PAPER_RUNS = {
+    "sectored": dict(n_requests=39927, n_acts=30222, total_ps=143243937,
+                     e_act_bits=0x480A50B3, e_rdwr_bits=0x47B58829),
+    "baseline": dict(n_requests=33735, n_acts=25037, total_ps=181011250,
+                     e_act_bits=0x47FBC255, e_rdwr_bits=0x4811D693),
+}
 
 
 def fail(msg: str):
@@ -2578,6 +2667,55 @@ def dense_families(torch, np, sa, launch_serve, configs, model, card,
     return out
 
 
+def paper_sim(card) -> dict:
+    """The ``paper_sim`` phase: the port's DRAM simulator (a host model in
+    numpy) runs every paper table at the reference's default sizes on this
+    machine's CPU, each held to the reference's rows (PAPER_ROWS), after the
+    first high mix's sectored and baseline runs are held to PAPER_RUNS.
+    Reports each table's seconds, the DRAM requests it simulated and the
+    microseconds per request, beside the card's name and power limit."""
+    import numpy as np
+
+    from repro_torch.core import dram, simulator
+    from repro_torch.launch import paper
+
+    t_start = time.perf_counter()
+    simulator.cache_clear()
+    mix = tuple(paper.high_mixes()[0])
+    runs = {}
+    for arch, want in PAPER_RUNS.items():
+        dram.reset_counts()
+        t0 = time.perf_counter()
+        r = simulator.run_system(mix, arch, paper.N_INSTR)
+        got = dict(n_requests=r.sim.n_requests, n_acts=r.sim.n_acts,
+                   total_ps=r.sim.total_ps,
+                   e_act_bits=int(np.float32(r.sim.e_act_nj).view(np.uint32)),
+                   e_rdwr_bits=int(np.float32(r.sim.e_rdwr_nj).view(np.uint32)))
+        runs[arch] = dict(got, seconds=time.perf_counter() - t0,
+                          us_per_request=dram.counts["loop_s"] * 1e6
+                          / dram.counts["requests"])
+        if got != want:
+            fail(f"paper_sim: the {arch} run of {mix} is {got}, the "
+                 f"reference's {want}")
+    simulator.cache_clear()  # each table's time below is its own work
+    tables = []
+    for name, want in PAPER_ROWS.items():
+        res = paper.run_table(name)
+        rows = [tuple(row.split(",", 2)[::2]) for row in res["rows"]]
+        tables.append(res)
+        if rows != want:
+            fail(f"paper_sim: {name} rows {rows}, the reference's {want}")
+    seconds = time.perf_counter() - t_start
+    requests = sum(t["requests"] for t in tables)
+    out = dict(phase="paper_sim", card=card, numpy=np.__version__,
+               seconds=seconds, pinned_runs=runs, tables=tables,
+               requests=requests,
+               us_per_request=sum(t["seconds"] for t in tables) * 1e6
+               / requests)
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -2632,6 +2770,7 @@ def main(argv=None) -> int:
 
     launches = {"bf16": 0, "int8": 0}
     if not args.quick:
+        records.append(paper_sim(card))
         torch.backends.cuda.matmul.allow_tf32 = False
         cfg = configs.get("yi-6b")
         t0 = time.perf_counter()

@@ -91,6 +91,29 @@ def test_never_evicts_referenced_entries(entries):
     """Refcount > 0 pins an entry through arbitrary admission pressure:
     every leased prompt stays fully matchable until released (the
     reference's property, which the reference itself fails)."""
+    _never_evicts_referenced_entries(entries)
+
+
+#: the 2-entry sequence that falsified the reference's property: its
+#: ``insert`` walks the tree before it evicts, and the eviction prunes the
+#: node the walk returned, so ``shed`` raises ``KeyError``
+TWO_ENTRY_FAULT = [([0], False), ([0, 0, 0, 0, 0], False)]
+
+
+def test_never_evicts_referenced_entries_two_entry_example():
+    """The property's body on the sequence that breaks the reference: the
+    port accepts both inserts, matches all 5 tokens, and sheds to 0 pages."""
+    cache = PrefixCache(capacity_pages=2, page_size=4)
+    for i, (toks, _) in enumerate(TWO_ENTRY_FAULT):
+        assert cache.insert(tuple(toks), state=i)
+    donor, m = cache.match((0, 0, 0, 0, 0))
+    assert m == 5 and donor.state == 1
+    cache.shed(1_000_000)
+    assert cache.held_pages == 0
+    _never_evicts_referenced_entries(TWO_ENTRY_FAULT)
+
+
+def _never_evicts_referenced_entries(entries):
     cache = PrefixCache(capacity_pages=2, page_size=4)
     leases = []
     for i, (toks, hold) in enumerate(entries):
