@@ -116,6 +116,25 @@ one JSON line:
    time counts and float32 energy bits (PAPER_RUNS); each table's seconds,
    DRAM requests and microseconds per request, with ``numpy.__version__``.
    It runs right after the kernel phases;
+3e. ``train`` (after leg D, with the serving legs' weights freed) —
+   ``repro_torch.train.loop.run`` over ``make_train_step(remat=True)`` on
+   yi-6b at full width, the first 8 of its 32 layers (``TRAIN``: why not
+   16), 8 x 1,024 tokens a step from the deterministic pipeline, AdamW
+   at lr 1e-5: 6 steps with a checkpoint every 3 into
+   ``build/chip_smoke/train``; a fresh loop from the initial parameters
+   after the step-6 checkpoint is removed restores step 3 and must end
+   bitwise on the uninterrupted run's parameters and optimizer state and
+   losses; a run with a failure injected at step 1 (attempt 0) must
+   retry once and give the same losses. Losses finite, the last 3 below
+   the first; step ms (median of steps 2-6, CUDA events), tokens/s,
+   model FLOPs/s (6 N tokens) and its share of 989 TFLOP/s with the
+   remat recompute apart, peak memory, the optimizer's share of a step,
+   checkpoint seconds and bytes, and the losses at the default lr. Each
+   reduced config takes one step on the card (the reference's
+   test_one_train_step), the reduced yi-6b's loss and gradients held to
+   the CPU's; ``repro_torch.launch.train`` (yi-6b and qwen3-moe, reduced,
+   20 steps) and ``launch.train_100m`` run on the card by default and
+   their losses must decrease;
 4. cli — ``repro_torch.launch.serve.main`` (reduced config): with
    ``--telemetry`` (it prints the energy table); with the serving layer's
    flags (``--scheduler overlap --kv-pages --prefix-cache --shared-prefix
@@ -2667,6 +2686,352 @@ def dense_families(torch, np, sa, launch_serve, configs, model, card,
     return out
 
 
+# -- phase 3e: training -----------------------------------------------------
+
+# train: yi-6b at full width, the first 8 of its 32 layers, from seed 0.
+# Not 16: a checkpoint holds the parameters as f32 beside the f32 moments
+# (the reference's format), 39.5 GB at 16 layers, and the loop's step-3
+# and step-6 checkpoints would not fit together on the H100 host's 75 GB
+# of free disk; at 8 layers one is 22.9 GB. The step is functional (the loop
+# retries from the last good state), so the card holds that state, the
+# new one and the caller's initial one at once (a 60.8-61.8 GB peak on
+# an H100 80GB HBM3 at 700 W). AdamW's defaults but lr 1e-5: at the
+# default 3e-4, with no warmup, the first steps move every weight of the
+# random 4096-wide stack by lr * sign(g) against an init std of 0.0156
+# and the loss climbs (``default_lr_losses`` reports it).
+TRAIN = dict(arch="yi-6b", n_layers=8, seq_len=1024, global_batch=8,
+             steps=6, checkpoint_every=3, fail_at=1, lr=1e-5)
+# the reduced yi-6b on the card against the port on the CPU, at the CPU
+# parity tests' bf16 tolerances (tests/test_torch_train_grads.py): the
+# loss, and each gradient leaf's largest error over its largest
+# magnitude and its error norm over its norm
+TRAIN_LOSS_TOL = 2e-3
+TRAIN_GRAD_MAX_TOL = 0.08
+TRAIN_GRAD_NORM_TOL = 0.05
+# one step of the reference's test_one_train_step may not raise the loss
+# by more than this
+ONE_STEP_SLACK = 0.05
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA's data sheet
+
+
+def same_bits(torch, a, b) -> bool:
+    """``a`` and ``b`` (on any devices) hold the same dtype, shape and
+    bits."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    b = b.to(a.device)
+    if a.dtype in view:
+        a, b = a.view(view[a.dtype]), b.view(view[a.dtype])
+    return bool(torch.equal(a, b))
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+@contextlib.contextmanager
+def timed_module_calls(module, names, seconds):
+    """Time each call of ``module.<name>`` into ``seconds[name]`` inside
+    the block; the functions are put back after it."""
+    saved = {name: getattr(module, name) for name in names}
+    try:
+        for name in names:
+            timed_calls(module, name, seconds.setdefault(name, []))
+        yield seconds
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def train_loop_checks(torch, np, model, cfg, data, root: Path, dev):
+    """``loop.run`` over ``TRAIN["steps"]`` steps of
+    ``make_train_step(remat=True)`` with a checkpoint every
+    ``TRAIN["checkpoint_every"]``; then a fresh loop from the initial
+    parameters after the last checkpoint is gone (it restores the one
+    before and must end on the same bits and losses), and a run with a
+    failure injected at step ``TRAIN["fail_at"]``, attempt 0 (one retry,
+    the same losses). Returns the record and the retry run's final state
+    (for the optimizer's timing)."""
+    import shutil
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.graphs import leaves
+    from repro_torch.train import loop
+    from repro_torch.train import step as train_step
+
+    ocfg = adamw.AdamWConfig(lr=TRAIN["lr"])
+    spans = []
+    step = device_timer(torch, dev, spans)(
+        train_step.make_train_step(cfg, opt_cfg=ocfg, remat=True))
+
+    def fresh():
+        params = model.init_params(cfg, seed=0, device=dev)
+        return params, adamw.init_state(params, ocfg)
+
+    steps, every = TRAIN["steps"], TRAIN["checkpoint_every"]
+    shutil.rmtree(root, ignore_errors=True)
+    lc = loop.LoopConfig(total_steps=steps, checkpoint_every=every,
+                         checkpoint_dir=str(root / "run"))
+    io = {}
+    with timed_module_calls(manager, ("save", "restore"), io):
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, o, first = loop.run(step, *fresh(), data, lc)
+        run_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda"
+                   else None)
+        step_ms = span_ms(spans)
+        final = [t.cpu() for t in leaves(dict(params=p, opt=o))]
+        ckpt_bytes = dir_bytes(root / "run" / f"step_{every:08d}")
+        del p, o
+        shutil.rmtree(root / "run" / f"step_{steps:08d}")
+        spans.clear()
+        t0 = time.perf_counter()
+        p, o, again = loop.run(step, *fresh(), data, lc)
+        restart_s = time.perf_counter() - t0
+        restart_bitwise = all(
+            same_bits(torch, a, b) for a, b in zip(
+                leaves(dict(params=p, opt=o)), final, strict=True))
+        del p, o, final
+        shutil.rmtree(root / "run")
+
+        def injector(step_i, attempt):
+            if step_i == TRAIN["fail_at"] and attempt == 0:
+                raise RuntimeError("injected failure")
+
+        spans.clear()
+        lc_retry = loop.LoopConfig(total_steps=TRAIN["fail_at"] + 1,
+                                   checkpoint_every=every,
+                                   checkpoint_dir=str(root / "retry"))
+        p, o, retried = loop.run(step, *fresh(), data, lc_retry,
+                                 fail_injector=injector)
+        shutil.rmtree(root / "retry")
+    losses = first.losses
+    out = dict(
+        losses=losses, step_ms_by_step=step_ms,
+        step_ms=statistics.median(step_ms[1:]), run_s=run_s,
+        peak_mem_gb=peak_gb,
+        checkpoint=dict(bytes=ckpt_bytes, save_s=io["save"],
+                        restore_s=io["restore"]),
+        restart=dict(restored_from=again.restored_from,
+                     losses=again.losses, bitwise=restart_bitwise,
+                     seconds=restart_s),
+        retry=dict(retries=retried.retries, losses=retried.losses))
+    checks = dict(
+        finite=all(math.isfinite(x) for x in losses),
+        decreasing=statistics.mean(losses[-3:]) < losses[0],
+        uninterrupted=(first.final_step == steps
+                       and first.restored_from == 0 and first.retries == 0),
+        restart=(again.restored_from == every and restart_bitwise
+                 and again.losses == losses[every:]),
+        retry=(retried.retries == 1
+               and retried.losses == losses[:TRAIN["fail_at"] + 1]))
+    out["checks"] = checks
+    return out, (p, o, ocfg)
+
+
+def default_lr_losses(torch, model, cfg, data, dev) -> list:
+    """The phase's first ``TRAIN["steps"]`` losses under
+    ``AdamWConfig()`` as it stands (lr 3e-4), without the loop."""
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_step
+
+    params = model.init_params(cfg, seed=0, device=dev)
+    ocfg = adamw.AdamWConfig()
+    opt = adamw.init_state(params, ocfg)
+    step = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=True)
+    losses = []
+    for i in range(TRAIN["steps"]):
+        params, opt, m = step(params, opt, pipeline.batch_for(
+            data, pipeline.PipelineState(i), device=dev))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def optimizer_share(torch, cfg, data, state, dev, reps: int = 3):
+    """Device ms of the step's two parts on the retry run's final state,
+    in the step's deterministic mode: the loss and its gradients (remat)
+    and the AdamW update; medians of ``reps``."""
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_step
+
+    params, opt, ocfg = state
+    batch = pipeline.batch_for(data, pipeline.PipelineState(0), device=dev)
+    fb, up = [], []
+    grads = device_timer(torch, dev, fb)(
+        lambda: train_step.value_and_grad(params, cfg, batch["tokens"],
+                                          batch["labels"], remat=True)[1])
+    update = device_timer(torch, dev, up)(
+        lambda g: adamw.update_leaves(params, g, opt, ocfg))
+    with train_step.deterministic():
+        for _ in range(reps):
+            new = update(grads())
+            del new
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    fb_ms = statistics.median(span_ms(fb))
+    up_ms = statistics.median(span_ms(up))
+    return dict(fwd_bwd_ms=fb_ms, optimizer_ms=up_ms,
+                optimizer_share=up_ms / (fb_ms + up_ms))
+
+
+def train_reduced_archs(torch, np, configs, model, dev):
+    """The reference's test_one_train_step for each of the ten reduced
+    configs on ``dev``: finite losses, and one AdamW step (lr 1e-3) on a
+    fixed batch does not raise the loss by more than ONE_STEP_SLACK. The
+    reduced yi-6b's loss and gradients on ``dev`` against the port on
+    the CPU on the same parameters (TRAIN_*_TOL)."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.graphs import map_tree
+    from repro_torch.train import step as train_step
+
+    archs = {}
+    for arch in sorted(configs.ARCHS):
+        cfg = configs.get(arch).reduced()
+        params = model.init_params(cfg, seed=0, device=dev)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab, (2, 16)).astype(np.int32)).to(dev)
+        ocfg = adamw.AdamWConfig(lr=1e-3)
+        step = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=False)
+        new, _, m = step(params, adamw.init_state(params, ocfg),
+                         dict(tokens=toks, labels=toks))
+        l0 = float(m["loss"])
+        with torch.no_grad():
+            l1 = float(model.lm_loss(new, cfg, toks, toks))
+        archs[arch] = dict(l0=l0, l1=l1, ok=(
+            math.isfinite(l0) and math.isfinite(l1)
+            and l1 < l0 + ONE_STEP_SLACK))
+    cfg = configs.get("yi-6b").reduced()
+    cpu = model.init_params(cfg, seed=0, device="cpu")
+    card = map_tree(lambda t: t.to(dev), cpu)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    l_cpu, g_cpu = train_step.value_and_grad(
+        cpu, cfg, torch.from_numpy(toks), torch.from_numpy(labels))
+    with train_step.deterministic():
+        l_dev, g_dev = train_step.value_and_grad(
+            card, cfg, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(labels).to(dev))
+    worst_max = worst_norm = 0.0
+    for a, b in zip(g_cpu, g_dev, strict=True):
+        a, b = a.float(), b.float().cpu()
+        d = (a - b).abs()
+        worst_max = max(worst_max, float(d.max() / a.abs().max().clamp_min(
+            1e-30)))
+        worst_norm = max(worst_norm, float(d.norm() / a.norm().clamp_min(
+            1e-30)))
+    loss_err = abs(float(l_cpu) - float(l_dev))
+    vs_cpu = dict(loss_err=loss_err, grad_max_err=worst_max,
+                  grad_norm_err=worst_norm,
+                  ok=(loss_err <= TRAIN_LOSS_TOL
+                      and worst_max <= TRAIN_GRAD_MAX_TOL
+                      and worst_norm <= TRAIN_GRAD_NORM_TOL))
+    return archs, vs_cpu
+
+
+def train_clis(root: Path, dev):
+    """``repro_torch.launch.train`` for the reduced yi-6b and qwen3-moe
+    (20 steps each, on the card by default: ``--device`` only where
+    ``dev`` is not the card) and ``repro_torch.launch.train_100m`` (its
+    default 200 steps and config); each loss must decrease."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch import train_100m
+
+    device = [] if dev == "cuda" else ["--device", dev]
+    out = {}
+    for arch in ("yi-6b", "qwen3-moe-235b-a22b"):
+        t0 = time.perf_counter()
+        res = launch_train.main(["--arch", arch, "--reduced", "--steps",
+                                 "20", "--checkpoint-dir",
+                                 str(root / f"cli_{arch}"), *device])
+        out[arch] = dict(seconds=time.perf_counter() - t0,
+                         first=res.losses[0], last=res.losses[-1],
+                         final_step=res.final_step,
+                         ok=(res.final_step == 20
+                             and res.losses[-1] < res.losses[0]))
+    t0 = time.perf_counter()
+    try:  # exits when the loss does not decrease
+        res = train_100m.main(["--checkpoint-dir", str(root / "100m"),
+                               *device])
+    except SystemExit as e:
+        fail(f"train_100m: {e}")
+    out["yi-100m"] = dict(seconds=time.perf_counter() - t0,
+                          first=res.losses[0], last=res.losses[-1],
+                          final_step=res.final_step,
+                          ok=res.final_step == len(res.losses))
+    return out
+
+
+def train_phase(torch, np, configs, model, card, dev="cuda", cfg=None,
+                data=None, root=None) -> dict:
+    """The ``train`` phase: the fault-tolerant loop on yi-6b at full
+    width (``TRAIN``; :func:`train_loop_checks`), the optimizer's share
+    of a step, one step of each reduced config and the reduced yi-6b held
+    to the CPU, and the CLIs. Reports the losses, step ms (median of
+    steps 2-N, CUDA events), tokens/s, model FLOPs/s (6 N tokens) and its
+    share of PEAK_BF16_FLOPS with the remat recompute (2 N_layers tokens)
+    apart, peak device memory, the optimizer's share and checkpoint
+    seconds and bytes. ``cfg``, ``data`` and ``root`` (a reduced config,
+    a small DataConfig, a scratch directory; with ``dev="cpu"``) rehearse
+    it on the CPU."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.data import pipeline
+
+    t_start = time.perf_counter()
+    root = root or ROOT / "build" / "chip_smoke" / "train"
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get(TRAIN["arch"]),
+                                  n_layers=TRAIN["n_layers"])
+        data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+                                   global_batch=TRAIN["global_batch"], seed=0)
+    loop_rec, state = train_loop_checks(torch, np, model, cfg, data, root,
+                                        dev)
+    share = optimizer_share(torch, cfg, data, state, dev)
+    del state
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    default_lr = default_lr_losses(torch, model, cfg, data, dev)
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    archs, vs_cpu = train_reduced_archs(torch, np, configs, model, dev)
+    clis = train_clis(root, dev)
+    shutil.rmtree(root, ignore_errors=True)
+
+    tokens = data.global_batch * data.seq_len
+    n = cfg.param_count()
+    n_layers = sum(cfg._layer_params(k) for k in cfg.layer_kinds)
+    s = loop_rec["step_ms"] / 1e3
+    model_flops, recompute_flops = 6 * n * tokens, 2 * n_layers * tokens
+    out = dict(
+        phase="train", card=card, arch=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, params=n, tokens_per_step=tokens,
+        **loop_rec, tokens_per_s=tokens / s,
+        model_tflop_per_step=model_flops / 1e12,
+        model_tflops_per_s=model_flops / s / 1e12,
+        model_flops_share=model_flops / s / PEAK_BF16_FLOPS,
+        recompute_tflop_per_step=recompute_flops / 1e12,
+        with_recompute_tflops_per_s=(model_flops + recompute_flops) / s
+        / 1e12, **share, lr=TRAIN["lr"], default_lr_losses=default_lr,
+        reduced_archs=archs, reduced_vs_cpu=vs_cpu,
+        clis=clis, seconds=time.perf_counter() - t_start)
+    emit(out)
+    bad = [k for k, ok in loop_rec["checks"].items() if not ok]
+    bad += [f"one step {a}" for a, r in archs.items() if not r["ok"]]
+    bad += ["reduced yi-6b vs the CPU"] if not vs_cpu["ok"] else []
+    bad += [f"cli {a}" for a, r in clis.items() if not r["ok"]]
+    if bad:
+        fail(f"train: {bad}")
+    return out
+
+
 def paper_sim(card) -> dict:
     """The ``paper_sim`` phase: the port's DRAM simulator (a host model in
     numpy) runs every paper table at the reference's default sizes on this
@@ -2813,6 +3178,8 @@ def main(argv=None) -> int:
         records.append(dict(phase="dense_families_seconds",
                             seconds=time.perf_counter() - t0))
         emit(records[-1])
+        records.append(memory_line(torch, "before train"))
+        records.append(train_phase(torch, np, configs, model, card))
         records.append(q8_reduced_check(torch, np, configs, model,
                                         sectored_decode, quantized_kv))
 

@@ -1,0 +1,135 @@
+"""Checkpoints in the JAX package's on-disk format (counterpart of its
+``checkpoint/manager.py``), so each package restores the other's.
+
+Format: ``<dir>/step_XXXXXXXX/`` holds ``shard_{host}.npz`` (one array
+``leaf_{i}`` per leaf, in the reference's ``tree_flatten`` order: dict
+keys sorted, lists in order, ``None`` no leaf; bf16 stored as f32, which
+is lossless) and, from host 0, ``manifest.json`` (``step``, ``n_hosts``,
+``treedef``, ``shapes``, ``dtypes`` named as numpy names them). A
+checkpoint is written into ``step_XXXXXXXX.tmp{host}`` and published by
+``os.replace``; :func:`latest` finds the newest complete one, so a torn
+write is skipped. The ``.npz`` is written one leaf at a time (the zip of
+``.npy`` members that ``np.savez`` writes), so the host holds one leaf,
+not the whole state. The reference's restore onto a device mesh
+(``mesh``/``shardings``) is a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import zipfile
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.runtime.graphs import leaves, unflatten
+
+MANIFEST = "manifest.json"
+
+
+def treedef_str(tree) -> str:
+    """The tree's structure as ``str`` of the reference's ``PyTreeDef``
+    renders it for dicts, lists and ``None`` (``*`` for a leaf)."""
+    if isinstance(tree, torch.Tensor):
+        return "*"
+    if isinstance(tree, dict):
+        items = ", ".join(f"{key!r}: {treedef_str(tree[key])}"
+                          for key in sorted(tree))
+        return "{" + items + "}"
+    if isinstance(tree, (list, tuple)):
+        inner = ", ".join(treedef_str(t) for t in tree)
+        return f"[{inner}]" if isinstance(tree, list) else f"({inner})"
+    if tree is None:
+        return "None"
+    raise TypeError(f"no checkpoint layout for {type(tree).__name__}")
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A leaf as the array the reference stores: bf16 as f32."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _write_npz(path: str, tree) -> None:
+    """``np.savez(path, leaf_0=..., ...)``, one leaf in host memory at a
+    time."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, t in enumerate(leaves(tree)):
+            with zf.open(f"leaf_{i}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, _to_numpy(t),
+                                          allow_pickle=False)
+
+
+def save(directory: str, step: int, tree, *, host_id: int = 0,
+         n_hosts: int = 1) -> str:
+    """Write checkpoint ``step`` of ``tree``; returns its path."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    tmp = path + f".tmp{host_id}"
+    os.makedirs(tmp, exist_ok=True)
+    _write_npz(os.path.join(tmp, f"shard_{host_id}.npz"), tree)
+    if host_id == 0:
+        ls = list(leaves(tree))
+        manifest = dict(
+            step=step,
+            n_hosts=n_hosts,
+            treedef=f"PyTreeDef({treedef_str(tree)})",
+            shapes=[list(t.shape) for t in ls],
+            dtypes=[_dtype_name(t) for t in ls],
+        )
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f)
+    # atomic publish
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+    return path
+
+
+def is_complete(path: str) -> bool:
+    if not os.path.exists(os.path.join(path, MANIFEST)):
+        return False
+    with open(os.path.join(path, MANIFEST)) as f:
+        m = json.load(f)
+    return all(
+        os.path.exists(os.path.join(path, f"shard_{h}.npz"))
+        for h in range(m["n_hosts"])
+    )
+
+
+def latest(directory: str) -> str | None:
+    """Newest *complete* checkpoint (torn writes are skipped)."""
+    if not os.path.isdir(directory):
+        return None
+    steps = sorted(
+        (d for d in os.listdir(directory) if d.startswith("step_")
+         and not d.endswith(".tmp0")),
+        reverse=True,
+    )
+    for d in steps:
+        p = os.path.join(directory, d)
+        if is_complete(p):
+            return p
+    return None
+
+
+def restore(path: str, like_tree, device=None):
+    """Load a checkpoint into the structure and dtypes of ``like_tree``
+    on ``device`` (``None`` = the GPU), one leaf at a time. Returns
+    ``(tree, step)``."""
+    dev = resolve_device(device)
+    with open(os.path.join(path, MANIFEST)) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "shard_0.npz")) as data:
+        loaded = [torch.from_numpy(data[f"leaf_{i}"]).to(dev).to(like.dtype)
+                  for i, like in enumerate(leaves(like_tree))]
+    return unflatten(like_tree, loaded), manifest["step"]

@@ -2,9 +2,10 @@
 package's ``configs/base.py``).
 
 Every assigned architecture is expressed as a :class:`ModelConfig`; tests
-instantiate ``reduced()`` configs on the CPU. The reference's
-``token_specs``, input shapes and parameter counts (for its dry run and
-roofline tools) wait for the port's tooling slice.
+instantiate ``reduced()`` configs on the CPU. ``param_count`` and
+``active_param_count`` give the training phase its 6·N·tokens model
+FLOPs; the reference's ``token_specs`` and input shapes (for its dry run
+and roofline tools) wait for the port's tooling slice.
 """
 
 from __future__ import annotations
@@ -71,6 +72,38 @@ class ModelConfig:
     @property
     def uniform_layers(self) -> bool:
         return len(set(self.layer_kinds)) == 1 and self.layer_kinds[0] in ("attn",)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (for 6ND model-FLOPs accounting)."""
+        emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+        return emb + sum(self._layer_params(k) for k in self.layer_kinds)
+
+    def _layer_params(self, kind: str) -> int:
+        d = self.d_model
+        hd = self.head_dim_
+        n = 0
+        if kind == "attn":
+            n += d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+            if self.moe:
+                e = self.moe
+                n += e.n_experts * 3 * d * e.d_expert + d * e.n_experts
+                n += e.n_shared_experts * 3 * d * e.d_expert
+            else:
+                n += 3 * d * self.d_ff
+        elif kind == "rwkv":
+            n += 4 * d * d + 2 * d * self.d_ff
+        elif kind == "rec":
+            n += 2 * d * d + 3 * d * self.d_ff
+        return n
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k of n_experts)."""
+        if not self.moe:
+            return self.param_count()
+        d, e = self.d_model, self.moe
+        dense = self.param_count() - self.n_layers * e.n_experts * 3 * d * e.d_expert
+        active = self.n_layers * (e.top_k + e.n_shared_experts) * 3 * d * e.d_expert
+        return dense + active
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Small same-family config for CPU smoke tests."""

@@ -1,8 +1,9 @@
 """LM stack (counterpart of the JAX package's ``models/model.py``), for
 all ten configs: uniform attention (dense or MoE FFN), attention-free
 RWKV6 and the RG-LRU / local-attention hybrid. ``init_params``,
-``forward`` (the prefill trunk), ``prefill``, ``init_decode_state``,
-``decode_step`` and ``logits_fn``. Parameters are a nested dict of
+``forward`` (the training and prefill trunk, with per-layer remat),
+``lm_loss``, ``prefill``, ``init_decode_state``, ``decode_step`` and
+``logits_fn``. Parameters are a nested dict of
 tensors with the reference's layout: where the layers are all of one
 kind (uniform attention, RWKV) per-layer tensors are stacked on a leading
 ``(n_layers, ...)`` axis and the reference's ``lax.scan`` over layers is
@@ -29,6 +30,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils import checkpoint
 
 from repro_torch.kernels import backend
 from repro_torch.models import attention, griffin, layers, moe, rwkv
@@ -138,46 +140,90 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def forward(params: dict, cfg, tokens=None, *, embeds=None,
-            positions=None) -> torch.Tensor:
+            positions=None, remat: bool = False) -> torch.Tensor:
     """Trunk: tokens (B, S) or embeds (B, S, D) -> final hidden states
-    (B, S, D)."""
+    (B, S, D). ``remat`` recomputes each layer's activations in the
+    backward pass instead of keeping them (the reference's
+    ``jax.checkpoint`` of the layer body): the same ops on the same
+    inputs, so the loss and every gradient keep their bits."""
     x = layers.embed(params, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     if positions is None:
         positions = _positions(B, S, x.device)
-    x = _layers_over_prompt(params, cfg, x, positions)
+    x = _layers_over_prompt(params, cfg, x, positions, remat=remat)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
+def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """Causal LM loss: the mean over all positions of
+    ``logsumexp(logits_f32) - gold``.
+
+    The reference takes the gold logit as a masked sum over the vocab
+    (``iota == label``), so that a vocab-sharded logits tensor reduces
+    shard-locally; every other term of that sum is 0, so it equals a
+    ``torch.gather`` of the label's logit exactly, which spares a
+    (B, S, vocab) f32 tensor here."""
+    hidden = forward(params, cfg, tokens, remat=remat)
+    logits = logits_fn(params, cfg, hidden).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _layer_over_prompt(lp: dict, cfg, kind: str, x: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """One layer of the reference's ``forward``, a recurrent one from a
+    zero state."""
+    B = x.shape[0]
+    if kind == "attn":
+        return _attn_block(lp, cfg, x, positions, window=_window(cfg))
+    if kind == "rec":
+        return _rec_block(lp, cfg, x,
+                          griffin.init_rec_state(cfg, B, x.device))[0]
+    return rwkv.rwkv_block(lp, cfg, x,
+                           rwkv.init_state(cfg, B, x.device, x.dtype))[0]
+
+
 def _layers_over_prompt(params: dict, cfg, x: torch.Tensor,
-                        positions: torch.Tensor, state=None) -> torch.Tensor:
+                        positions: torch.Tensor, state=None,
+                        remat: bool = False) -> torch.Tensor:
     """The layer stack over a whole prompt, each recurrent layer from a
-    zero state (the reference's ``forward``). With ``state`` (a
-    :class:`DecodeState` sized for the prompt), every layer's decode
-    state is written into it: each attention layer's K/V re-projected
-    into rows ``[:S]``, each RWKV block's ``(S, last_t, last_c)`` and each
-    RG-LRU's last hidden state."""
+    zero state (the reference's ``forward``). Without ``state``, ``remat``
+    runs each layer under ``torch.utils.checkpoint`` (when autograd
+    records). With ``state`` (a :class:`DecodeState` sized for the
+    prompt), every layer's decode state is written into it: each
+    attention layer's K/V re-projected into rows ``[:S]``, each RWKV
+    block's ``(S, last_t, last_c)`` and each RG-LRU's last hidden
+    state."""
     B, S = x.shape[:2]
+    if state is None:
+        remat = remat and torch.is_grad_enabled()
+        for i, kind in enumerate(cfg.layer_kinds):
+            lp = layer_params(params, i)
+            if remat:
+                x = checkpoint.checkpoint(_layer_over_prompt, lp, cfg, kind,
+                                          x, positions, use_reentrant=False)
+            else:
+                x = _layer_over_prompt(lp, cfg, kind, x, positions)
+        return x
     for i, kind in enumerate(cfg.layer_kinds):
         lp = layer_params(params, i)
         if kind == "attn":
-            if state is not None:
-                cache = state.layer_kv(i)
-                h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-                _, k, v = attention.qkv(lp["attn"], cfg, h, positions)
-                cache.k[:, :S] = k.to(cache.k.dtype)
-                cache.v[:, :S] = v.to(cache.v.dtype)
+            cache = state.layer_kv(i)
+            h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
+            _, k, v = attention.qkv(lp["attn"], cfg, h, positions)
+            cache.k[:, :S] = k.to(cache.k.dtype)
+            cache.v[:, :S] = v.to(cache.v.dtype)
             x = _attn_block(lp, cfg, x, positions, window=_window(cfg))
         elif kind == "rec":
             x, h_last = _rec_block(lp, cfg, x,
                                    griffin.init_rec_state(cfg, B, x.device))
-            if state is not None:
-                state.layer_rec(i).copy_(h_last)
+            state.layer_rec(i).copy_(h_last)
         else:
             x, new = rwkv.rwkv_block(
                 lp, cfg, x, rwkv.init_state(cfg, B, x.device, x.dtype))
-            if state is not None:
-                copy_tree_(state.layer_rec(i), new)
+            copy_tree_(state.layer_rec(i), new)
     return x
 
 

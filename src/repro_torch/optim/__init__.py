@@ -1,0 +1,1 @@
+"""Optimizers of the port (counterpart of the JAX package's ``optim``)."""

@@ -71,6 +71,28 @@ def leaves(tree):
             yield from leaves(item)
 
 
+def unflatten(tree, new_leaves):
+    """``tree`` with its tensors replaced, in :func:`leaves` order, by
+    ``new_leaves`` (as many tensors): the inverse of :func:`leaves`."""
+    it = iter(new_leaves)
+
+    def take(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        if dataclasses.is_dataclass(t):
+            return dataclasses.replace(t, **{
+                f.name: take(getattr(t, f.name))
+                for f in dataclasses.fields(t)})
+        if isinstance(t, dict):
+            out = {key: take(t[key]) for key in sorted(t)}
+            return {key: out[key] for key in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(take(item) for item in t)
+        return t
+
+    return take(tree)
+
+
 def map_tree(fn, tree):
     """``tree`` with every tensor ``t`` replaced by ``fn(t)``; the
     structure (dataclasses, dicts, tuples, lists, ``None``) is kept."""

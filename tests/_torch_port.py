@@ -31,6 +31,18 @@ def bf16_pair(rng, shape, scale=1.0):
     return j, bridge.tensor_from_numpy(np.asarray(j), device="cpu")
 
 
+def to_jax(tree):
+    """A nested dict / list of the port's tensors as JAX arrays, bit for
+    bit (bf16 through its 16-bit pattern)."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_jax(v) for v in tree)
+    a = bridge.tensor_to_numpy_bits(tree)
+    return jnp.asarray(a.view(jnp.bfloat16) if tree.dtype == torch.bfloat16
+                       else a)
+
+
 def small_models():
     """(jax cfg, port cfg, jax params, port params): the reference's
     ``init_params(key 0)`` bridged bit for bit."""

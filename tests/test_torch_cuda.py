@@ -726,3 +726,79 @@ def test_serving_layer_flavors_agree_on_card(gpu):
             else:
                 assert max(abs(a - b) for a, b in zip(lps, want_lps)) <= \
                     BATCH_LOGPROB_TOL
+
+
+# the CPU parity tests' bf16 tolerances (tests/test_torch_train_grads.py)
+TRAIN_LOSS_TOL = 2e-3
+TRAIN_GRAD_MAX_TOL = 0.08
+TRAIN_GRAD_NORM_TOL = 0.05
+
+
+def _bits_equal(a, b):
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    b = b.to(a.device)
+    if a.dtype in view:
+        a, b = a.view(view[a.dtype]), b.view(view[b.dtype])
+    return torch.equal(a, b)
+
+
+def test_train_step_restart_and_retry_on_card(gpu, tmp_path):
+    """One reduced training step's loss and gradients on the card against
+    the port on the CPU on the same parameters; the loop on the card: a
+    restart from the step-2 checkpoint ends on the uninterrupted run's
+    bits and losses, and a retried step changes no loss."""
+    import numpy as np
+
+    from repro_torch.data import pipeline
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.graphs import leaves, map_tree
+    from repro_torch.train import loop
+    from repro_torch.train import step as train_step
+
+    cfg = configs.get("yi-6b").reduced()
+    cpu = model.init_params(cfg, seed=0, device="cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    l_cpu, g_cpu = train_step.value_and_grad(
+        cpu, cfg, torch.from_numpy(toks), torch.from_numpy(labels))
+    with train_step.deterministic():
+        l_gpu, g_gpu = train_step.value_and_grad(
+            map_tree(lambda t: t.to(gpu), cpu), cfg,
+            torch.from_numpy(toks).to(gpu), torch.from_numpy(labels).to(gpu))
+    assert abs(float(l_cpu) - float(l_gpu)) <= TRAIN_LOSS_TOL
+    for a, b in zip(g_cpu, g_gpu, strict=True):
+        a, b = a.float(), b.float().cpu()
+        d = (a - b).abs()
+        assert float(d.max()) <= TRAIN_GRAD_MAX_TOL * float(a.abs().max())
+        assert float(d.norm()) <= TRAIN_GRAD_NORM_TOL * float(a.norm())
+
+    ocfg = adamw.AdamWConfig(lr=3e-3)
+    step = train_step.make_train_step(cfg, opt_cfg=ocfg)
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+
+    def fresh():
+        params = model.init_params(cfg, seed=0, device=gpu)
+        return params, adamw.init_state(params, ocfg)
+
+    lc = loop.LoopConfig(total_steps=4, checkpoint_every=2,
+                         checkpoint_dir=str(tmp_path / "run"))
+    p1, o1, first = loop.run(step, *fresh(), data, lc)
+    assert all(t.is_cuda for t in leaves(p1))
+    (tmp_path / "run" / "step_00000004" / "manifest.json").unlink()
+    p2, o2, again = loop.run(step, *fresh(), data, lc)
+    assert again.restored_from == 2 and again.losses == first.losses[2:]
+    assert all(_bits_equal(a, b) for a, b in zip(
+        leaves(dict(params=p1, opt=o1)), leaves(dict(params=p2, opt=o2)),
+        strict=True))
+
+    def injector(step_i, attempt):
+        if step_i == 1 and attempt == 0:
+            raise RuntimeError("injected failure")
+
+    _, _, retried = loop.run(
+        step, *fresh(), data,
+        loop.LoopConfig(total_steps=4, checkpoint_every=100,
+                        checkpoint_dir=str(tmp_path / "retry")),
+        fail_injector=injector)
+    assert retried.retries == 1 and retried.losses == first.losses
