@@ -2096,6 +2096,227 @@ def serve_layer_fused(torch, np, sa, launch_serve, cfg, params, card,
     return out, sum(launches.values())
 
 
+# -- phase 3b': the serving mesh -------------------------------------------------
+
+# the mesh phase: 4 prompts whose 6 valid pages exceed the k = 4 budget
+# plus its probe page, so the predictor selects a strict subset; half
+# sampled, 16 new tokens, FIFO (4 slots)
+MESH_LEG = dict(lengths=(660, 670, 680, 690), new=16)
+MESH_SPECS = ("1", "1x1")
+
+
+def sectored_inner(backend):
+    """The innermost backend under any decorators (``.inner`` chain)."""
+    while hasattr(backend, "inner"):
+        backend = backend.inner
+    return backend
+
+
+def memo_prefill(torch, backend, memo, spans, dev="cuda"):
+    """Route ``backend.prefill_fn`` through ``memo`` (prompt bytes ->
+    (logits, state) of the first run, handed out as copies): the exact
+    prefill is the same computation on every mesh, so runs after the
+    first two skip it. ``spans`` gets each real prefill's device time."""
+    from repro_torch.runtime.graphs import clone_tree
+    real = device_timer(torch, dev, spans)(backend.prefill_fn)
+
+    def prefill(tokens):
+        key = bytes(memoryview(tokens.astype("int32")))
+        if memo is None:
+            return real(tokens)
+        if key not in memo:
+            memo[key] = real(tokens)
+        logits, state = memo[key]
+        return logits.clone(), clone_tree(state)
+    backend.prefill_fn = prefill
+
+
+def mesh_run(torch, np, sa, comm, launch_serve, cfg, params, specs, *,
+             mesh, outside, memo, seq_len, dev="cuda"):
+    """One metered, captured serving run of the mesh phase (mesh None:
+    unmeshed; ``outside``: the meter wraps the MeshBackend instead):
+    streams, meter, the host replay, launches, collectives, wave and
+    prefill device times, peak memory."""
+    from repro_torch.serve import (AlwaysSectored, FifoScheduler,
+                                   MeshBackend, Request, ServeSession)
+    from repro_torch.telemetry import MeteredBackend, meters
+    if outside:
+        inner = launch_serve.build_backend(cfg, params, true_sectored=True,
+                                           seq_len=seq_len, kernel="fused",
+                                           device=dev)
+        backend = MeteredBackend(MeshBackend(inner, mesh))
+        sess = ServeSession(backend, max_batch=4, scheduler=FifoScheduler(),
+                            policy=AlwaysSectored())
+    else:
+        sess = launch_serve.build_session(
+            cfg, params, true_sectored=True, kernel="fused",
+            policy="sectored", seq_len=seq_len, max_batch=4, device=dev,
+            telemetry=True, mesh=mesh)
+    skv = sectored_inner(sess.backend)
+    prefill_spans, waves = [], []
+    memo_prefill(torch, skv, memo, prefill_spans, dev)
+    events = log_schedule(sess.meter)
+    wave_for = sess._wave_for
+    made = []
+
+    def timed_wave_for(fn, sampled=False):
+        wave = wave_for(fn, sampled)
+        made.append(wave)
+        return device_timer(torch, dev, waves)(wave)
+    sess._wave_for = timed_wave_for
+    rng = np.random.default_rng(5)
+    handles = [sess.submit(Request(
+        rid, rng.integers(0, cfg.vocab, n).astype(np.int32),
+        max_new_tokens=MESH_LEG["new"], sampler=specs[rid]))
+        for rid, n in enumerate(MESH_LEG["lengths"])]
+    cuda = dev == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    sa.reset_launches()
+    comm.reset_launches()
+    t0 = time.perf_counter()
+    sess.run_until_drained()
+    if cuda:
+        torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    report = sess.meter.report()
+    host = schedule_meter(meters, skv.kv_geometry(), events=events).report()
+    wave_ms = span_ms(waves)
+    captured = [body for w in made for body in getattr(w, "built", ())
+                if hasattr(body, "launches")]
+    rec = dict(
+        mesh=None if mesh is None else "x".join(
+            map(str, sess.backend.mesh_shape)),
+        order=("meter outside" if outside else "mesh outside"),
+        stats=dict(sess.stats), total_s=total_s,
+        tokens=[h.peek() for h in handles],
+        logprobs=[h.logprobs() for h in handles],
+        request_energy_j=[h.energy_j for h in handles],
+        request_dram_ns=[h.telemetry["dram_ns"] for h in handles],
+        meter={k: report[k] for k in (
+            "energy_j", "dram_ns", "prefill_dram_ns", "prefill_j", "tokens",
+            "audit_checks", "audit_max_rel_err")},
+        meter_mesh_shape=report["mesh_shape"],
+        host_replay_equal={k: report[k] == host[k] for k in (
+            "energy_j", "dram_ns", "prefill_dram_ns", "prefill_j",
+            "tokens")},
+        launches=dict(sa.launches), collectives=dict(comm.launches),
+        wave_ms_median_2_n=statistics.median(wave_ms[1:]),
+        wave_ms_first=wave_ms[0],
+        prefill_s=sum(span_ms(prefill_spans)) / 1e3,
+        prefills_computed=len(prefill_spans),
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9 if cuda
+                     else None))
+    if mesh is not None:
+        # a meshed wave is a CapturedStep when its collectives went into
+        # the graph: the launches one replay holds, per counter
+        rec["captured_waves"] = len(captured)
+        rec["collectives_per_replay"] = [w.launches[-1].get("wave", 0)
+                                         for w in captured]
+        rec["donor"] = sess.backend.donor_device
+    del sess, handles
+    return rec
+
+
+def mesh_phase(torch, np, sa, launch_serve, cfg, params, card, dev="cuda",
+               seq_len=2048):
+    """The serving mesh on one card: the fused path under
+    ``AlwaysSectored``, metered, graphs on, half the requests sampled;
+    unmeshed, then over a one-rank NCCL (gloo with ``dev="cpu"``, a
+    rehearsal) ``MeshBackend`` at ``1`` and
+    ``1x1`` (whose paged gather runs over a one-rank 'model' group), each
+    in both decorator orders. Tokens, logprobs, per-request joules and
+    ``dram_ns`` and the meter's totals bitwise across the runs; each
+    meter equal to its host replay; the paged kernel launched once a
+    layer a wave; the collectives a wave makes counted and their place
+    (inside the captured wave or not) reported; wave ms meshed against
+    unmeshed; the donor's prefill; peak memory. Returns (record, paged
+    launches)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import comm
+    from repro_torch.sample import SamplerSpec
+    specs = [SamplerSpec(seed=rid, **SAMPLED) if rid % 2 else None
+             for rid in range(len(MESH_LEG["lengths"]))]
+    memo: dict = {}
+    runs = [mesh_run(torch, np, sa, comm, launch_serve, cfg, params, specs,
+                     mesh=None, outside=False, memo=memo, seq_len=seq_len,
+                     dev=dev)]
+    t0 = time.perf_counter()
+    meshes = {spec: mesh_mod.make_serving_mesh(spec, device=dev)
+              for spec in MESH_SPECS}
+    group_s = time.perf_counter() - t0
+    # the first meshed run prefills for real on the donor (no memo)
+    for i, (spec, outside) in enumerate(
+            [(m, o) for m in MESH_SPECS for o in (False, True)]):
+        runs.append(mesh_run(torch, np, sa, comm, launch_serve, cfg, params,
+                             specs, mesh=meshes[spec], outside=outside,
+                             memo=None if i == 0 else memo,
+                             seq_len=seq_len, dev=dev))
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    backend = dist.get_backend()
+    del meshes, memo
+    gc.collect()
+    dist.destroy_process_group()
+    base = runs[0]
+    keys = ("tokens", "logprobs", "request_energy_j", "request_dram_ns",
+            "meter", "stats")
+    same = [{k: r[k] == base[k] for k in keys} for r in runs[1:]]
+    want_paged = cfg.n_layers * base["stats"]["sectored_waves"]
+    n_waves = base["stats"]["waves"]
+    # per wave: tokens and logprobs over 'data'; at 1x1 also K and V
+    # pages over 'model' in every layer
+    want_coll = {"1": 2, "1x1": 2 + 2 * cfg.n_layers}
+    out = dict(
+        phase="mesh", card=card, leg=MESH_LEG, process_group=backend,
+        group_init_s=group_s,
+        specs=[s.describe() if s else "greedy" for s in specs],
+        runs=[{k: v for k, v in r.items() if k not in (
+            "tokens", "logprobs", "request_energy_j", "request_dram_ns")}
+            for r in runs],
+        bitwise_vs_unmeshed=same,
+        wave_ms_unmeshed=base["wave_ms_median_2_n"],
+        wave_ms_overhead={f"{r['mesh']} ({r['order']})":
+                          r["wave_ms_median_2_n"] - base["wave_ms_median_2_n"]
+                          for r in runs[1:]},
+        prefill_s_unmeshed=base["prefill_s"],
+        donor_prefill_s=runs[1]["prefill_s"],
+        collectives_per_wave={f"{r['mesh']} ({r['order']})":
+                              r["collectives"]["wave"] / n_waves
+                              for r in runs[1:]},
+        collectives_inside_captured_wave=all(
+            r["captured_waves"] > 0 and all(
+                n == want_coll[r["mesh"]] for n in r["collectives_per_replay"])
+            for r in runs[1:]))
+    emit(out)
+    checks = dict(
+        bitwise=all(all(s.values()) for s in same),
+        host_replay=all(all(r["host_replay_equal"].values()) for r in runs),
+        audit=all(r["meter"]["audit_checks"] > 0
+                  and r["meter"]["audit_max_rel_err"] <= AUDIT_TOL
+                  for r in runs),
+        launches=all(r["launches"]["bf16"] == (want_paged if dev == "cuda"
+                                               else 0) for r in runs),
+        collectives=all(r["collectives"]["wave"]
+                        == want_coll[r["mesh"]] * n_waves for r in runs[1:]),
+        captured=(out["collectives_inside_captured_wave"]
+                  if dev == "cuda" else True),
+        stamped=all(r["meter_mesh_shape"] == [int(x) for x in
+                                              r["mesh"].split("x")]
+                    for r in runs[1:]),
+        sectored=base["stats"]["sectored_waves"] == n_waves > 0,
+        nccl=backend == ("nccl" if dev == "cuda" else "gloo"))
+    if not all(checks.values()):
+        fail(f"mesh: {checks}")
+    return out, sum(r["launches"]["bf16"] for r in runs)
+
+
 # -- phase 3c: the other model families ----------------------------------------
 
 # leg C: qwen3-moe at full width, 8 of its 94 layers (one layer's experts
@@ -2195,14 +2416,14 @@ def attend_pairs(torch, sectored_decode, rows):
     plain = sectored_decode.sectored_attend
 
     def paired(attn_params, cfg, x, cache, table_l, k_pages, probe=False,
-               kernel="dispatch"):
+               kernel="dispatch", shard=None):
         if kernel != "fused":
             return plain(attn_params, cfg, x, cache, table_l, k_pages,
-                         probe=probe, kernel=kernel)
+                         probe=probe, kernel=kernel, shard=shard)
         od, _, td = plain(attn_params, cfg, x, cache, table_l, k_pages,
-                          probe=probe, kernel="dispatch")
+                          probe=probe, kernel="dispatch", shard=shard)
         out = plain(attn_params, cfg, x, cache, table_l, k_pages,
-                    probe=probe, kernel="fused")
+                    probe=probe, kernel="fused", shard=shard)
         of, _, tf = out
         rows.append(torch.stack([
             (of.float() - od.float()).abs().max() / od.float().abs().max(),
@@ -3163,6 +3384,13 @@ def main(argv=None) -> int:
         records.append(dict(phase="serve_layer_seconds",
                             seconds=time.perf_counter() - t0))
         emit(records[-1])
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh_rec, mesh_launches = mesh_phase(torch, np, sa, launch_serve,
+                                             cut, cut_params, card)
+        records.append(dict(mesh_rec, seconds=time.perf_counter() - t0))
+        launches["bf16"] += mesh_launches
+        emit(dict(phase="mesh_seconds", seconds=records[-1]["seconds"]))
         del params, cut_params
         records.append(memory_line(torch, "after the yi-6b legs"))
 
@@ -3194,6 +3422,19 @@ def main(argv=None) -> int:
         emit(cli)
         if stats["completed"] != 4 or sa.launches["bf16"] == 0:
             fail(f"CLI run: {stats}, launches {sa.launches}")
+        # the same run over a one-rank NCCL mesh (--mesh 1)
+        sa.reset_launches()
+        mesh_stats = launch_serve.main([
+            "--arch", "yi-6b", "--reduced", "--requests", "4",
+            "--max-new-tokens", "4", "--max-batch", "4", "--true-sectored",
+            "--fused-kernel", "--policy", "sectored", "--telemetry",
+            "--mesh", "1", "--device", "cuda"])
+        records.append(dict(phase="cli_mesh", stats=mesh_stats,
+                            launches=dict(sa.launches)))
+        emit(records[-1])
+        if mesh_stats != stats or sa.launches["bf16"] == 0:
+            fail(f"CLI --mesh 1 run: {mesh_stats} vs {stats}, launches "
+                 f"{sa.launches}")
         # the serving layer as the CLI drives it: overlap, pool, prefix
         # cache, recorder with command timelines, the looped wave
         trace = ROOT / "build" / "chip_smoke" / "cli_serving_layer.json"
@@ -3249,8 +3490,8 @@ def main(argv=None) -> int:
             source=KERNEL_SOURCE, replaces=TPU_KERNEL,
             path=("serving main path, CUDA graph replays: the greedy "
                   "fused leg, the two sampled graph legs, the two "
-                  "serve_layer_fused runs and leg C's fused run "
-                  "(qwen3-moe, rep = 16)" if flavor == "bf16"
+                  "serve_layer_fused runs, the five mesh runs and leg "
+                  "C's fused run (qwen3-moe, rep = 16)" if flavor == "bf16"
                   else "serving main path, CUDA graph replays"),
             launches=launches[flavor], max_abs_err=worst[flavor],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

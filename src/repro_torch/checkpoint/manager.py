@@ -10,8 +10,10 @@ checkpoint is written into ``step_XXXXXXXX.tmp{host}`` and published by
 ``os.replace``; :func:`latest` finds the newest complete one, so a torn
 write is skipped. The ``.npz`` is written one leaf at a time (the zip of
 ``.npy`` members that ``np.savez`` writes), so the host holds one leaf,
-not the whole state. The reference's restore onto a device mesh
-(``mesh``/``shardings``) is a later slice of the port.
+not the whole state. :func:`restore` with ``mesh``/``shardings`` is the
+elastic path: every rank reads the stored global arrays and keeps its
+block of each leaf, so a checkpoint saved by one rank restores onto any
+mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.parallel import sharding
 from repro_torch.runtime.graphs import leaves, unflatten
 
 MANIFEST = "manifest.json"
@@ -122,14 +125,34 @@ def latest(directory: str) -> str | None:
     return None
 
 
-def restore(path: str, like_tree, device=None):
+def restore(path: str, like_tree, device=None, *, mesh=None,
+            shardings=None):
     """Load a checkpoint into the structure and dtypes of ``like_tree``
     on ``device`` (``None`` = the GPU), one leaf at a time. Returns
-    ``(tree, step)``."""
+    ``(tree, step)``.
+
+    With ``mesh`` (a DeviceMesh this rank belongs to) and ``shardings``
+    (a spec tree shaped like ``like_tree``, e.g.
+    ``parallel.sharding.param_shardings``) each rank keeps only its block
+    of every stored global leaf, cut by that leaf's spec (an elastic
+    re-shard: the checkpoint may come from any mesh). ``like_tree``
+    gives the global structure and dtypes. Without them the load is the
+    whole tree, as written.
+    """
+    if (mesh is None) != (shardings is None):
+        raise ValueError("restore onto a mesh needs both mesh= and "
+                         "shardings=")
     dev = resolve_device(device)
+    specs = (list(sharding.spec_leaves(shardings)) if shardings is not None
+             else None)
+    coords = sharding.mesh_coords(mesh) if mesh is not None else None
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
+    loaded = []
     with np.load(os.path.join(path, "shard_0.npz")) as data:
-        loaded = [torch.from_numpy(data[f"leaf_{i}"]).to(dev).to(like.dtype)
-                  for i, like in enumerate(leaves(like_tree))]
+        for i, like in enumerate(leaves(like_tree)):
+            a = data[f"leaf_{i}"]
+            if specs is not None and a.ndim:  # a scalar is replicated
+                a = a[sharding.local_slice(specs[i], a.shape, mesh, coords)]
+            loaded.append(torch.from_numpy(a).to(dev).to(like.dtype))
     return unflatten(like_tree, loaded), manifest["step"]

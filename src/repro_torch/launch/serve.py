@@ -43,10 +43,18 @@ recorder (spans on the virtual step clock, a metrics table at the end),
 Perfetto JSON, and ``--obs-commands`` (with ``--telemetry``) adds each
 metered wave's DRAM command timeline.
 
+``--mesh DxM`` shards the decode waves over a device mesh
+(``serve.mesh_backend.MeshBackend``): the slot axis over 'data', the
+sectored KV pages over 'model', prefill on the last rank. One process
+runs per device: ``--mesh 1`` (or ``1x1``) runs alone, a larger mesh
+under ``torchrun --nproc-per-node N`` (NCCL on the card, gloo with
+``--device cpu``); only rank 0 prints. Streams and joules are the same
+on every mesh shape.
+
 Runs on the GPU, where decode waves (and the sectored prefill steps)
 replay captured CUDA graphs, unless ``--device cpu`` is given; the dense
 prefill runs eagerly, its shapes following the prompt. Parameters are
-random, from a seeded generator. The mesh is a later slice of the port.
+random, from a seeded generator.
 """
 
 from __future__ import annotations
@@ -55,10 +63,12 @@ import argparse
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.core import metrics
 from repro_torch.kernels import backend as kbackend
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import model
 from repro_torch.obs import (FlightRecorder, MetricsRegistry, write_jsonl,
                              write_perfetto)
@@ -67,9 +77,9 @@ from repro_torch.runtime.graphs import Step
 from repro_torch.sample import SamplerSpec
 from repro_torch.serve import (AdaptiveSectorPolicy, AlwaysDense,
                                AlwaysSectored, FifoScheduler,
-                               HysteresisPolicy, KVPagePool, OverlapScheduler,
-                               PrefixCache, Request, ServeSession,
-                               ServingBackend)
+                               HysteresisPolicy, KVPagePool, MeshBackend,
+                               OverlapScheduler, PrefixCache, Request,
+                               ServeSession, ServingBackend)
 from repro_torch.telemetry import MeteredBackend
 from repro_torch.telemetry.meters import KVGeometry
 
@@ -176,9 +186,12 @@ def build_session(cfg, params, *, max_batch=4, sectored=True,
     On the GPU its waves and prefill replay captured CUDA graphs;
     ``graphs=False`` runs them eagerly. ``telemetry`` (implied by
     ``policy="adaptive"``) meters the backend; ``scheduler`` is "fifo" or
-    "overlap"; ``vectorized=False`` runs the looped wave."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh is a later slice of the port")
+    "overlap"; ``vectorized=False`` runs the looped wave. ``mesh`` (a
+    ``'d'``/``'dxm'`` spec or a DeviceMesh) wraps the backend in a
+    ``MeshBackend``, outermost, so the session finds its hooks."""
+    if mesh is not None and not vectorized:
+        raise ValueError("--mesh needs the vectorized wave "
+                         "(--engine vectorized)")
     backend = build_backend(cfg, params, sectored=sectored,
                             true_sectored=true_sectored, seq_len=seq_len,
                             kernel=kernel, device=device, graphs=graphs)
@@ -198,6 +211,12 @@ def build_session(cfg, params, *, max_batch=4, sectored=True,
         pol = build_policy(policy, backend.meter.recorder)
     else:
         pol = build_policy(policy)
+    if mesh is not None:
+        mesh_obj = (mesh if not isinstance(mesh, str)
+                    else mesh_mod.make_serving_mesh(mesh, device=device))
+        # MeshBackend is the outermost decorator: the session discovers
+        # its wave/placement hooks directly, the meter passes through
+        backend = MeshBackend(backend, mesh_obj)
     sched = OverlapScheduler() if scheduler == "overlap" else FifoScheduler()
     return ServeSession(backend, max_batch=max_batch, scheduler=sched,
                         policy=pol, vectorized=vectorized,
@@ -294,6 +313,12 @@ def main(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
                     help="prepend N common tokens to every prompt so "
                          "--prefix-cache hits (0 = independent prompts)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="shard decode waves over a device mesh, e.g. "
+                         "'4x2' (data=4, model=2) or '2' (data only); "
+                         "tokens and joules are mesh-shape-invariant "
+                         "(one process per device: start N ranks with "
+                         "torchrun --nproc-per-node N)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -349,6 +374,8 @@ def main(argv=None):
                     if args.prefix_cache else None)
     obs = (FlightRecorder(MetricsRegistry(), commands=args.obs_commands)
            if args.obs else None)
+    # a group this run starts is this run's to end
+    own_group = args.mesh is not None and not dist.is_initialized()
     sess = build_session(cfg, params, max_batch=args.max_batch,
                          scheduler=args.scheduler,
                          vectorized=args.engine == "vectorized",
@@ -356,7 +383,7 @@ def main(argv=None):
                          telemetry=telemetry, policy=args.policy,
                          bg_energy=args.bg_energy, page_pool=page_pool,
                          prefix_cache=prefix_cache, obs=obs, kernel=kernel,
-                         device=device)
+                         mesh=args.mesh, device=device)
     rng = np.random.default_rng(0)
     shared = rng.integers(0, cfg.vocab,
                           size=args.shared_prefix).astype(np.int32)
@@ -378,6 +405,19 @@ def main(argv=None):
     stats = sess.run_until_drained()
     if not all(h.done for h in handles):
         raise RuntimeError("session drained with unfinished requests")
+    if sess.mesh is None or dist.get_rank() == 0:
+        print_run(sess, cfg, args, device, kernel, stats, handles, obs,
+                  telemetry)
+    if own_group:
+        dist.destroy_process_group()
+    return stats
+
+
+def print_run(sess, cfg, args, device, kernel, stats, handles, obs,
+              telemetry) -> None:
+    """The run's stats line and the reports its flags ask for."""
+    mesh_tag = ("" if sess.mesh is None else "mesh=" + "x".join(
+        map(str, sess.backend.mesh_shape)) + " ")
     pool_tag = ("" if sess.page_pool is None
                 else f"preemptions={stats['preemptions']} "
                      f"kv_peak_pages={sess.page_pool.peak_pages} ")
@@ -393,7 +433,7 @@ def main(argv=None):
                       f"prefix_evictions={c.stats['evictions']} ")
     print(f"arch={cfg.name} device={device} kernel={kernel} "
           f"engine={args.engine} scheduler={args.scheduler} "
-          f"completed={stats['completed']} "
+          f"{mesh_tag}completed={stats['completed']} "
           f"decode_steps={stats['decode_steps']} waves={stats['waves']} "
           f"sectored_steps={stats['sectored_steps']} "
           f"merged_slots={stats['merged_slots']} "
@@ -408,7 +448,6 @@ def main(argv=None):
     if obs is not None:
         print_obs_report(obs, trace_out=args.obs_trace_out,
                          perfetto_out=args.obs_perfetto_out)
-    return stats
 
 
 def print_seed_provenance(handles, *, base_seed: int, limit: int = 16) -> None:

@@ -24,12 +24,14 @@ time. A CUDA graph records those launches once and replays them as one.
   does not run. A capture records how many launches it holds and adds
   them to the counters on every replay; the warm-up's and the capture's
   own calls are taken back out (:func:`uncounted`), so the counters read
-  what the card ran for the caller.
+  what the card ran for the caller. A meshed wave's collectives
+  (``parallel.comm.launches``) are counted the same way.
 * garbage: the cyclic collector runs before a capture and not during it,
   since freeing another graph while a stream captures invalidates the
   capture.
 
-Leaf module: imports torch and the kernel wrappers' counters only.
+Leaf module: imports torch and the kernel wrappers' and collectives'
+counters only.
 """
 
 from __future__ import annotations
@@ -41,11 +43,14 @@ import gc
 import torch
 
 from repro_torch.kernels import flash_attention, sectored_attention, vbl_gather
+from repro_torch.parallel import comm
 
-#: every kernel wrapper's launch counter (name -> count dicts)
+#: every kernel wrapper's launch counter and the collectives' (name ->
+#: count dicts)
 KERNEL_COUNTERS = (sectored_attention.launches,
                    sectored_attention.head_major_launches,
-                   vbl_gather.launches, flash_attention.launches)
+                   vbl_gather.launches, flash_attention.launches,
+                   comm.launches)
 
 
 # -- trees of tensors (dataclasses, dicts, tuples, lists) ---------------------

@@ -38,7 +38,17 @@ Port notes:
 * the prefix-cache hooks: ``state_prefix`` copies a cached state (the
   reference aliases its immutable arrays; here the next append would
   write into the cached entry) and ``suffix_prefill`` runs the prefill's
-  step from that seed.
+  step from that seed;
+* a cache whose page axis is split over a mesh's 'model' axis
+  (``serve.mesh_backend.MeshBackend``): where the reference's SPMD
+  partitioner gathers the selected pages across shards, a step built
+  with ``shard=`` (:class:`~repro_torch.parallel.comm.PageShard`)
+  writes each new row on the rank that owns its position and assembles
+  the selected pages into a full-length page buffer, at their own page
+  indices, before the attend. The attend (the dispatch gather or the
+  paged kernel) then runs on it exactly as on an unsharded cache, with
+  the original page indices and length, so its length mask and per-page
+  mass are unchanged.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import torch
 
 from repro_torch.kernels import backend, quantized_kv, sectored_attention
 from repro_torch.models import attention, layers, model
+from repro_torch.parallel import sharding
 from repro_torch.runtime import sector_predictor
 from repro_torch.runtime.graphs import Step, copy_tree_, leaves
 from repro_torch.serve.backend import ServingBackend
@@ -83,6 +94,10 @@ class SectoredState:
     kv: attention.KVCache  # leaves stacked over layers: (L, B, Spad, Hkv, hd)
     table: torch.Tensor  # (L, B, Hkv, P) sector-history table
     position: torch.Tensor  # (B,)
+
+    def _parts(self):
+        """(subtree, batch axis) of kv, table and position."""
+        return ((self.kv, 1), (self.table, 1), (self.position, 0))
 
     def clone(self) -> "SectoredState":
         return SectoredState(
@@ -169,7 +184,7 @@ def init_state(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
 
 def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
                     k_pages: int, probe: bool = False,
-                    kernel: str = "dispatch"):
+                    kernel: str = "dispatch", shard=None):
     """One-token decode attention over predictor-selected KV sectors.
 
     x: (B, 1, D). Returns (out, new_cache, new_table_l); the new K/V row is
@@ -178,7 +193,10 @@ def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
     ``probe=True`` widens the selection by one round-robin probe page
     (``sector_predictor.probe_page_for``) so unfetched pages' scores stay
     honest. ``kernel`` selects how the selected pages are read and
-    attended (see the module docstring).
+    attended (see the module docstring). ``shard`` (a
+    :class:`~repro_torch.parallel.comm.PageShard`): ``cache`` holds this
+    rank's block of pages, and the selected pages are gathered across
+    ranks first.
     """
     B = x.shape[0]
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
@@ -190,7 +208,10 @@ def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
         probe_page = sector_predictor.probe_page_for(cache.length, PAGE_SIZE)
         select_k = k_pages + 1
 
-    attention.append_kv(cache, k_new, v_new)
+    if shard is None:
+        attention.append_kv(cache, k_new, v_new)
+    else:
+        shard.append_(cache.k, cache.v, cache.length, k_new, v_new)
     k, v = cache.k, cache.v
 
     if getattr(cfg, "sector_share_heads", False):
@@ -207,6 +228,9 @@ def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
     qg = q[:, 0].reshape(B, hkv, rep, hd)
     kp = k.view(B, -1, PAGE_SIZE, hkv, hd)
     vp = v.view(B, -1, PAGE_SIZE, hkv, hd)
+    if shard is not None:
+        kp = shard.gather_pages(kp, pages)
+        vp = shard.gather_pages(vp, pages)
     if kernel == "dispatch":
         # gather the selected pages, then attend; with every valid page
         # selected (exact mode) the gathered buffer is the dense cache
@@ -241,13 +265,15 @@ def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
 
 def sectored_decode_step_(params, cfg, state: SectoredState, token,
                           k_pages: int, probe: bool = False,
-                          kernel: str = "dispatch") -> torch.Tensor:
+                          kernel: str = "dispatch",
+                          shard=None) -> torch.Tensor:
     """Full-model one-token decode with sectored attention per layer, in
     place: token (B, 1) int -> logits (B, vocab).
 
     The new K/V rows, lengths, table and position are written into
     ``state``; no buffer of it moves and nothing syncs with the host, so a
-    CUDA graph can capture the step.
+    CUDA graph can capture the step. ``shard``: ``state``'s K/V hold one
+    block of a page-sharded cache (see :func:`sectored_attend`).
     """
     x = layers.embed(params, token)
     for i in range(cfg.n_layers):
@@ -257,7 +283,7 @@ def sectored_decode_step_(params, cfg, state: SectoredState, token,
         h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
         att, cache_new, table_new = sectored_attend(
             lp["attn"], cfg, h, cache, state.table[i], k_pages, probe=probe,
-            kernel=kernel)
+            kernel=kernel, shard=shard)
         state.kv.length[i].copy_(cache_new.length)
         state.table[i].copy_(table_new)
         x = x + att
@@ -343,7 +369,7 @@ class SectoredKVBackend(ServingBackend):
         self.pages = padded_pages(seq_len)
         self.graphs = graphs and self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
-        self._k_cache: dict[int, Step] = {}
+        self._k_cache: dict[tuple, Step] = {}
         # batch -> (static state, captured exact step) of the prefill
         self._prefill_graphs: dict[int, tuple] = {}
         exact_fn = self._step_for(self.pages)
@@ -352,8 +378,13 @@ class SectoredKVBackend(ServingBackend):
                          or_merge_demands, vocab=cfg.vocab,
                          device=self.device)
 
-    def _step_for(self, k_pages: int) -> Step:
-        fn = self._k_cache.get(k_pages)
+    def _step_for(self, k_pages: int, shard=None) -> Step:
+        """The step at a page budget, built once per budget (and per
+        :class:`~repro_torch.parallel.comm.PageShard`: ``fn.for_pages(
+        shard)`` is the same step over one block of a page-sharded
+        cache)."""
+        key = (k_pages, shard)
+        fn = self._k_cache.get(key)
         if fn is None:
             cfg, params = self.cfg, self.params
             probe = self.probe_pages_for(k_pages) > 0
@@ -362,11 +393,13 @@ class SectoredKVBackend(ServingBackend):
             def step_(state, token):
                 return sectored_decode_step_(params, cfg, state, token,
                                              k_pages, probe=probe,
-                                             kernel=kernel)
+                                             kernel=kernel, shard=shard)
             fn = Step(step_, graphs=self.graphs, pool=self.pool)
             fn.k_pages = k_pages
             fn.kernel = kernel
-            self._k_cache[k_pages] = fn
+            if shard is None:
+                fn.for_pages = lambda s, k=k_pages: self._step_for(k, s)
+            self._k_cache[key] = fn
         return fn
 
     def probe_pages_for(self, k_pages: int) -> int:
@@ -483,6 +516,30 @@ def make_serving_fns(cfg, *, params, seq_len: int,
     return SectoredKVBackend(cfg, params, seq_len=seq_len,
                              topk_frac=topk_frac, min_topk=min_topk,
                              kernel=kernel, device=device, graphs=graphs)
+
+
+def make_sectored_decode_step(cfg, mesh, *, batch: int, seq_len: int,
+                              long_context: bool = False,
+                              topk_frac: float = TOPK_FRAC):
+    """Factory mirroring ``train.step.make_decode_step`` for the sectored
+    path: ``(fn, (param_specs, state_specs, token_spec), state_shape)``,
+    the specs from :mod:`repro_torch.parallel.sharding` over fake-tensor
+    shapes (nothing is allocated), ``fn(params, state, token) -> (logits,
+    new_state)``."""
+    k_pages = topk_for(seq_len, topk_frac)
+
+    def fn(params, state, token):
+        return sectored_decode_step(params, cfg, state, token, k_pages)
+
+    pspec = sharding.param_shardings(
+        mesh, sharding.abstract(model.init_params, cfg, device="cpu"))
+    state_shape = sharding.abstract(init_state, cfg, batch, seq_len,
+                                    device="cpu")
+    dp = sharding.data_axes(mesh)
+    sspec = sharding.sectored_state_shardings(mesh, state_shape,
+                                              long_context=long_context)
+    tok_spec = sharding.P(dp if not long_context else None, None)
+    return fn, (pspec, sspec, tok_spec), state_shape
 
 
 def bytes_saved_fraction(seq_len: int, topk_frac: float = TOPK_FRAC) -> float:

@@ -95,6 +95,12 @@ class SamplerRows:
         return SamplerRows(**{f.name: getattr(self, f.name).clone()
                               for f in dataclasses.fields(self)})
 
+    def block(self, slots: slice) -> "SamplerRows":
+        """The rows of a block of slots (views: in-place writes land in
+        these rows)."""
+        return SamplerRows(**{f.name: getattr(self, f.name)[slots]
+                              for f in dataclasses.fields(self)})
+
     def advance_(self, hold=None) -> "SamplerRows":
         """Counters after one wave, in place; ``hold`` (S,) bool masks
         slots whose counter must not move (the stop guard freezes token

@@ -13,15 +13,17 @@ JAX package's ``serve``).
   prefix sharing with warm suffix prefill;
 * :mod:`repro_torch.serve.session` — ``ServeSession``, the facade
   composing them; :mod:`repro_torch.serve.engine` — the legacy
-  ``Engine`` / ``LoopedEngine`` shims over it.
-
-The reference's ``MeshBackend`` is not ported yet.
+  ``Engine`` / ``LoopedEngine`` shims over it;
+* :mod:`repro_torch.serve.mesh_backend` — ``MeshBackend``, the session's
+  waves over a ``torch.distributed`` device mesh (slots over 'data',
+  sectored KV pages over 'model', prefill on a donor rank).
 """
 
 from repro_torch.sample import SamplerSpec
 from repro_torch.serve.backend import (ServingBackend, fused_select_step,
                                        make_fused_wave, make_prefused_wave)
 from repro_torch.serve.engine import Engine, EngineConfig, LoopedEngine
+from repro_torch.serve.mesh_backend import MeshBackend
 from repro_torch.serve.policy import (AdaptiveSectorPolicy, AlwaysDense,
                                       AlwaysSectored, HysteresisPolicy,
                                       PathDecision, SectorPolicy)
@@ -37,7 +39,7 @@ from repro_torch.serve.session import (PrefillGroup, Request, ServeSession,
 __all__ = [
     "ServingBackend", "fused_select_step", "make_fused_wave",
     "make_prefused_wave",
-    "Engine", "EngineConfig", "LoopedEngine",
+    "Engine", "EngineConfig", "LoopedEngine", "MeshBackend",
     "AdaptiveSectorPolicy", "AlwaysDense", "AlwaysSectored",
     "HysteresisPolicy", "PathDecision", "SectorPolicy",
     "CacheEntry", "PrefixCache", "PrefixLease",

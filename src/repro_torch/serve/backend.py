@@ -66,7 +66,7 @@ class ServingBackend:
 
 
 def _select_(logits, token: torch.Tensor, rows: SamplerRows,
-              sampled: bool):
+              sampled: bool, *, block: slice = slice(None), gather=None):
     """Token selection with the stop guard, advancing ``rows`` and
     writing each token's logprob into ``rows.logp`` in place; returns the
     ``(slots, 1)`` int32 tokens.
@@ -79,13 +79,21 @@ def _select_(logits, token: torch.Tensor, rows: SamplerRows,
     Stop guard (the EOS contract): a slot whose INPUT token is in its
     stop set re-emits that token, keeps its RNG counter and reports
     logprob 0, so a finished slot can never emit past EOS.
+
+    A meshed wave (``serve.mesh_backend``) computes the logits of a
+    ``block`` of the slots only: their tokens and logprobs are selected
+    per slot, ``gather`` brings every rank's block, and the counters of
+    all slots advance here (they depend on the input tokens alone).
     """
-    tok = (sample_from_logits(logits, rows) if sampled
+    tok = (sample_from_logits(logits, rows.block(block)) if sampled
            else greedy_select(logits))
     last = token.reshape(token.shape[0], -1)[:, -1].to(torch.int32)
     stopped = torch.any(last[:, None] == rows.stop, dim=-1)
-    tok = torch.where(stopped, last, tok)
-    rows.logp.copy_(torch.where(stopped, 0.0, token_logprob(logits, tok)))
+    tok = torch.where(stopped[block], last[block], tok)
+    logp = torch.where(stopped[block], 0.0, token_logprob(logits, tok))
+    if gather is not None:
+        tok, logp = gather(tok), gather(logp)
+    rows.logp.copy_(logp)
     rows.advance_(hold=stopped)
     return tok[:, None]
 

@@ -20,7 +20,13 @@ On one card the overlap is pipelining against the asynchronous replay:
 the prefill's host work runs while the card runs the wave, and its
 device work queues behind the wave on the same stream (the session reads
 the wave's tokens through an event recorded before the prefill, so the
-read does not wait for it). A prefill on a second stream is not ported.
+read does not wait for it). Over a
+:class:`~repro_torch.serve.mesh_backend.MeshBackend` the session's
+``prefill_one`` / ``prefill_group`` resolve to the backend's donor
+prefill, on the mesh's last rank, which hands the rows to every rank; on
+one card the donor is the wave's own rank, so no second stream is added.
+The scheduler itself is placement-blind, which keeps fifo and overlap
+token-identical on every mesh shape.
 
 On merge-free paths (dense backends, or sectored exact mode) both
 schedulers produce the same token streams on the same request trace:

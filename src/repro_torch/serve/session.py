@@ -62,8 +62,18 @@ Metering and the flight recorder are discovered, not configured: a
 :class:`~repro_torch.telemetry.MeteredBackend` carries a ``WaveMeter``
 and ``obs`` is a :class:`~repro_torch.obs.FlightRecorder`; both are
 driven on the host from counters the session already keeps, never inside
-a captured wave, and each hook is one ``is None`` check when off. A mesh
-backend raises ``NotImplementedError``.
+a captured wave, and each hook is one ``is None`` check when off.
+
+A :class:`~repro_torch.serve.mesh_backend.MeshBackend` extends the
+vectorized flavor across a device mesh, SPMD: every rank runs this
+session on the same schedule, and the session discovers the backend's
+hooks by ``getattr`` as it discovers the meter — ``wave_for`` (the
+meshed wave over this rank's block of slots, tokens gathered to every
+rank), ``place_stacked`` (a new wave buffer to this rank's block),
+``place_rows`` (the donor's prefilled rows to every rank, right after
+each cold prefill) and ``vmapped_prefill`` (a group prefill on the
+donor). Token streams, logprobs and joules stay bitwise across mesh
+shapes.
 """
 
 from __future__ import annotations
@@ -77,6 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import backend as kbackend
+from repro_torch.parallel import sharding
 from repro_torch.runtime.graphs import clone_tree, copy_tree_, leaves
 from repro_torch.sample import (MAX_STOP_TOKENS, SamplerRows, SamplerSpec,
                                 sample_token, select_tokens, token_logprob)
@@ -261,9 +272,6 @@ class ServeSession:
                  page_pool: KVPagePool | None = None,
                  prefix_cache: PrefixCache | None = None, obs=None,
                  max_stream_steps: int = 10_000):
-        if getattr(backend, "wave_for", None) is not None:
-            raise NotImplementedError(
-                "a mesh backend is not ported to repro_torch yet")
         if max_stream_steps < 1:
             raise ValueError(
                 f"max_stream_steps must be >= 1, got {max_stream_steps}")
@@ -303,6 +311,28 @@ class ServeSession:
         self._vocab = getattr(backend, "vocab", None)
         # a MeteredBackend carries a WaveMeter; a plain backend has none
         self.meter = getattr(backend, "meter", None)
+        # mesh placement is discovered the same way: a MeshBackend carries
+        # wave/placement hooks (wave_for, place_stacked, place_rows,
+        # vmapped_prefill); a plain backend has none and every branch
+        # below keeps the one-device behaviour
+        self._backend_wave_for = getattr(backend, "wave_for", None)
+        self._place_stacked = getattr(backend, "place_stacked", None)
+        self._place_rows = getattr(backend, "place_rows", None)
+        self._vmapped_prefill = getattr(backend, "vmapped_prefill", None)
+        self.mesh = getattr(backend, "mesh", None)
+        if not fuse_wave and self._backend_wave_for is not None:
+            raise ValueError(
+                "fuse_wave=False (the pre-fused reference wave) is a "
+                "single-device ablation; a backend supplying wave_for "
+                "(MeshBackend) always fuses token selection")
+        if self.meter is not None and hasattr(self.meter, "mesh_shape"):
+            # provenance stamp reflects the mesh THIS session's waves run
+            # on (None when unmeshed) — set here, not at wrapper
+            # construction, so a meter reused across sessions always
+            # reports the placement that actually executed
+            self.meter.mesh_shape = (
+                tuple(sharding.mesh_axes(self.mesh).values())
+                if self.mesh is not None else None)
         self.queue: collections.deque[StreamHandle] = collections.deque()
         self.slots: list[StreamHandle | None] = [None] * max_batch
         self.completion_order: list[int] = []
@@ -458,6 +488,8 @@ class ServeSession:
                                               max_match=len(prompt) - 1)
         if lease is None:
             logits, state = self.backend.prefill_fn(prompt[None, :])
+            if self._place_rows is not None:
+                state = self._place_rows(state)  # donor -> every rank
             return logits, state, None
         m = lease.matched_tokens
         seed = self._state_prefix(lease.entry.state, m)
@@ -535,6 +567,13 @@ class ServeSession:
                                                             prompts[0])
             self._take_lease(handles[0], lease)
             rows = [(row_logits, state)]
+        elif self._vmapped_prefill is not None:
+            # a mesh backend's group prefill runs on its donor rank
+            group_logits, states = self._vmapped_prefill(prompts)
+            if self._place_rows is not None:
+                states = self._place_rows(states)  # donor -> every rank
+            rows = [(group_logits[j:j + 1], state)
+                    for j, state in enumerate(states)]
         else:
             rows = [self.backend.prefill_fn(p[None, :]) for p in prompts]
         logits = [row[0] for row in rows]
@@ -575,6 +614,10 @@ class ServeSession:
         if (self.batched is None
                 or (self._batched_sig != sig and not self.active_slots())):
             self.batched = row_shape_of()
+            if self._place_stacked is not None:
+                # born on the mesh: this rank keeps its block, and the
+                # admission writes below land in it
+                self.batched = self._place_stacked(self.batched)
             self._batched_sig = sig
             self._wave_cache.clear()
         elif self._batched_sig != sig:
@@ -927,8 +970,12 @@ class ServeSession:
         key = (id(fn), sampled and self.fuse_wave)
         wave = self._wave_cache.get(key)
         if wave is None:
-            wave = (make_fused_wave(fn, sampled=sampled) if self.fuse_wave
-                    else make_prefused_wave(fn))
+            if not self.fuse_wave:
+                wave = make_prefused_wave(fn)
+            elif self._backend_wave_for is not None:
+                wave = self._backend_wave_for(fn, sampled=sampled)
+            else:
+                wave = make_fused_wave(fn, sampled=sampled)
             self._wave_cache[key] = wave
         return wave
 

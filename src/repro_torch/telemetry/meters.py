@@ -191,8 +191,9 @@ class WaveMeter:
         # workload-independent floor that dilutes the ACT/RD orderings
         # the paper's claims are about.
         self.background = background
-        # provenance only: a mesh backend (not ported yet) stamps the mesh
-        # it executes waves on. Energy NEVER depends on it — counters are
+        # provenance only: the ServeSession driving a MeshBackend's waves
+        # stamps the mesh they run on (and clears it when the meter is
+        # reused unmeshed). Energy NEVER depends on it — counters are
         # host-side.
         self.mesh_shape = mesh_shape
         self.recorder = recorder if recorder is not None else TraceRecorder()

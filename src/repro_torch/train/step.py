@@ -15,9 +15,12 @@ and PyTorch's deterministic algorithms replace them by sorted,
 ordered ones, so a retried or restarted step gives the same bits. The
 mode is switched on for the step only; the serving paths are untouched.
 
-The reference also returns the step's sharding annotations, and has the
-serving ``make_prefill_step`` / ``make_decode_step`` wrappers for its dry
-run; those wait for the port's multi-device slice.
+The serving wrappers :func:`make_prefill_step` / :func:`make_decode_step`
+return their step with the partition specs of
+:mod:`repro_torch.parallel.sharding` (over fake-tensor shapes), as the
+reference's do for its dry run. ``make_train_step`` does not take a mesh
+yet: its ``mesh``/``fsdp`` specs and the data-parallel gradient
+reduction are the next slice's.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch.utils.deterministic
 
 from repro_torch.models import model
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding
 from repro_torch.runtime.graphs import leaves, unflatten
 
 #: the cuBLAS workspace setting deterministic mode requires on the card
@@ -105,3 +109,36 @@ def make_train_step(cfg, *, opt_cfg: adamw.AdamWConfig | None = None,
         return new_params, new_opt, dict(loss=loss)
 
     return train_step
+
+
+def _param_specs(cfg, mesh):
+    return sharding.param_shardings(
+        mesh, sharding.abstract(model.init_params, cfg, device="cpu"))
+
+
+def make_prefill_step(cfg, mesh, *, long_context: bool = False):
+    """``(prefill_step, (param_specs, token_spec))``:
+    ``prefill_step(params, tokens) -> model.prefill(params, cfg,
+    tokens)``."""
+    def prefill_step(params, tokens):
+        return model.prefill(params, cfg, tokens)
+
+    return prefill_step, (_param_specs(cfg, mesh),
+                          sharding.batch_sharding(mesh))
+
+
+def make_decode_step(cfg, mesh, *, batch: int, seq_len: int,
+                     long_context: bool = False):
+    """serve_step: one new token against a ``seq_len`` KV cache.
+    ``(decode_step, (param_specs, state_specs, token_spec),
+    state_shape)``, the state's shape as fake tensors."""
+    def decode_step(params, state, token):
+        return model.decode_step(params, cfg, state, token)
+
+    state_shape = sharding.abstract(model.init_decode_state, cfg, batch,
+                                    seq_len, device="cpu")
+    sspec = sharding.decode_state_shardings(mesh, state_shape, long_context)
+    dp = sharding.data_axes(mesh)
+    tok_spec = sharding.P(dp if not long_context else None, None)
+    return (decode_step, (_param_specs(cfg, mesh), sspec, tok_spec),
+            state_shape)

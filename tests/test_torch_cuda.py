@@ -802,3 +802,52 @@ def test_train_step_restart_and_retry_on_card(gpu, tmp_path):
                         checkpoint_dir=str(tmp_path / "retry")),
         fail_injector=injector)
     assert retried.retries == 1 and retried.losses == first.losses
+
+
+@pytest.mark.parametrize("spec", ["1", "1x1"])
+def test_one_rank_nccl_mesh_matches_unmeshed(gpu, spec):
+    """A one-rank NCCL ``MeshBackend`` session (``1x1`` gathers its
+    selected pages over a one-rank 'model' group) equals the unmeshed
+    session bitwise with graphs on: tokens, logprobs, per-request joules;
+    the meshed wave is one captured graph holding its collectives."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import comm
+    from repro_torch.serve import MeshBackend
+    cfg = configs.get("yi-6b").reduced()
+    params = model.init_params(cfg, seed=0, device=gpu)
+    gen = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen)
+               .numpy().astype("int32") for n in (700, 710, 720, 730)]
+    specs = [None, SamplerSpec(temperature=0.8, top_k=50, top_p=0.9,
+                               seed=1)] * 2
+    owned = not dist.is_initialized()
+
+    def run(mesh):
+        sess = launch_serve.build_session(
+            cfg, params, true_sectored=True, kernel="fused",
+            policy="sectored", seq_len=1024, max_batch=4, telemetry=True,
+            mesh=mesh, device=gpu)
+        handles = [sess.submit(Request(rid, p, max_new_tokens=8,
+                                       sampler=specs[rid]))
+                   for rid, p in enumerate(prompts)]
+        comm.reset_launches()
+        sess.run_until_drained()
+        waves = [w for w in sess._wave_cache.values()]
+        return ([h.peek() for h in handles], [h.logprobs() for h in handles],
+                [h.energy_j for h in handles], sess.stats, waves)
+
+    try:
+        plain = run(None)
+        meshed = run(mesh_mod.make_serving_mesh(spec, device=gpu))
+        assert dist.get_backend() == "nccl"
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+    assert meshed[:4] == plain[:4]
+    assert plain[3]["sectored_waves"] == plain[3]["waves"] > 0
+    bodies = [b for w in meshed[4] for b in getattr(w, "built", ())]
+    assert bodies and all(isinstance(b, graphs.CapturedStep) for b in bodies)
+    per_replay = 2 + (2 * cfg.n_layers if spec == "1x1" else 0)
+    assert all(b.launches[-1]["wave"] == per_replay for b in bodies)

@@ -189,13 +189,16 @@ def test_session_rejects_what_is_not_ported(models):
     _, cfg, _, params = models
     backend = sectored_decode.make_serving_fns(cfg, params=params,
                                                seq_len=SEQ_LEN, device="cpu")
-    # only the mesh is still to port; the pool, the prefix cache, the
-    # flight recorder and the looped and pre-fused waves are accepted
+    # everything is ported: a mesh backend's hooks are discovered (the
+    # pre-fused ablation is refused over one, as in the reference); the
+    # pool, the prefix cache, the flight recorder and the looped and
+    # pre-fused waves are accepted
     mesh = sectored_decode.make_serving_fns(cfg, params=params,
                                             seq_len=SEQ_LEN, device="cpu")
     mesh.wave_for = lambda fn, sampled=False: None
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeSession(mesh)
+    assert ServeSession(mesh)._backend_wave_for is mesh.wave_for
+    with pytest.raises(ValueError, match="fuse_wave"):
+        ServeSession(mesh, fuse_wave=False)
     for kwargs in (dict(page_pool=KVPagePool(8)),
                    dict(prefix_cache=PrefixCache(8)),
                    dict(obs=FlightRecorder()), dict(vectorized=False),

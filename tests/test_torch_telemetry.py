@@ -690,13 +690,14 @@ def test_build_session_meters_the_backend():
     assert sess.policy.recorder is sess.meter.recorder
     with pytest.raises(ValueError):
         launch_serve.build_policy("adaptive")
-    # the flight recorder is ported; the mesh is still to port
+    # the flight recorder is ported; so is the mesh, which a process
+    # started alone can hold at one rank only
     obs = FlightRecorder()
     traced = launch_serve.build_session(cfg, params, true_sectored=True,
                                         telemetry=True, obs=obs,
                                         seq_len=384, device="cpu")
     assert traced.obs is obs and obs.meter is traced.meter
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 devices"):
         launch_serve.build_session(cfg, params, true_sectored=True,
                                    telemetry=True, mesh="2",
                                    seq_len=384, device="cpu")
