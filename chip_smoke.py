@@ -135,6 +135,25 @@ one JSON line:
    the CPU's; ``repro_torch.launch.train`` (yi-6b and qwen3-moe, reduced,
    20 steps) and ``launch.train_100m`` run on the card by default and
    their losses must decrease;
+3f. ``train_mesh`` (after ``train``, on its setup: yi-6b, 8 of 32 layers,
+   8 x 1,024 tokens, lr 1e-5) — ``make_train_step(cfg, mesh)`` over
+   one-rank NCCL meshes ``1`` and ``1x1``, fsdp off and on, 3 steps each
+   from the one set of initial parameters: each run's parameters,
+   optimizer state and losses bitwise the unmeshed run's; step ms meshed
+   and unmeshed (median of steps 2-3, CUDA events), collectives and
+   bytes a step (none at one rank), peak memory. No checkpoint I/O (the
+   save from a mesh is held to the unmeshed file on the CPU). Then one
+   meshed step (``1``, fsdp) under ``FlopCounterMode`` and one with the
+   peak-memory counter reset, for the dry run;
+3g. ``dryrun`` — ``python -m repro_torch.launch.dryrun`` in three
+   subprocesses started before ``train_mesh`` and run beside it (this
+   process holds an NCCL group; the dry run makes its own fake one):
+   the ``train_mesh`` step on a one-rank fake mesh over fake CUDA
+   tensors, whose FLOPs must equal the real step's count exactly and
+   whose predicted peak must lie within DRYRUN_PEAK_TOL of the real
+   step's ``max_memory_allocated`` (both printed, and their ratio); and
+   yi-6b's four cells on the 16x16 fake mesh (its training cell, and
+   the other three);
 4. cli — ``repro_torch.launch.serve.main`` (reduced config): with
    ``--telemetry`` (it prints the energy table); with the serving layer's
    flags (``--scheduler overlap --kv-pages --prefix-cache --shared-prefix
@@ -2933,6 +2952,10 @@ TRAIN_GRAD_NORM_TOL = 0.05
 # by more than this
 ONE_STEP_SLACK = 0.05
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA's data sheet
+# train_mesh: the meshes (one rank each) and the steps of every run
+TRAIN_MESH = dict(specs=("1", "1x1"), steps=3)
+# the dry run's predicted peak memory against the real step's
+DRYRUN_PEAK_TOL = 0.25
 
 
 def same_bits(torch, a, b) -> bool:
@@ -2985,7 +3008,7 @@ def train_loop_checks(torch, np, model, cfg, data, root: Path, dev):
     ocfg = adamw.AdamWConfig(lr=TRAIN["lr"])
     spans = []
     step = device_timer(torch, dev, spans)(
-        train_step.make_train_step(cfg, opt_cfg=ocfg, remat=True))
+        train_step.make_train_step(cfg, opt_cfg=ocfg, remat=True)[0])
 
     def fresh():
         params = model.init_params(cfg, seed=0, device=dev)
@@ -3064,7 +3087,7 @@ def default_lr_losses(torch, model, cfg, data, dev) -> list:
     params = model.init_params(cfg, seed=0, device=dev)
     ocfg = adamw.AdamWConfig()
     opt = adamw.init_state(params, ocfg)
-    step = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=True)
+    step, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=True)
     losses = []
     for i in range(TRAIN["steps"]):
         params, opt, m = step(params, opt, pipeline.batch_for(
@@ -3118,7 +3141,8 @@ def train_reduced_archs(torch, np, configs, model, dev):
         toks = torch.from_numpy(np.random.default_rng(3).integers(
             0, cfg.vocab, (2, 16)).astype(np.int32)).to(dev)
         ocfg = adamw.AdamWConfig(lr=1e-3)
-        step = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=False)
+        step, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg,
+                                                remat=False)
         new, _, m = step(params, adamw.init_state(params, ocfg),
                          dict(tokens=toks, labels=toks))
         l0 = float(m["loss"])
@@ -3250,6 +3274,221 @@ def train_phase(torch, np, configs, model, card, dev="cuda", cfg=None,
     bad += [f"cli {a}" for a, r in clis.items() if not r["ok"]]
     if bad:
         fail(f"train: {bad}")
+    return out
+
+
+def train_mesh_phase(torch, configs, model, card, dev="cuda", cfg=None,
+                     data=None) -> dict:
+    """The ``train_mesh`` phase: the train phase's setup (``TRAIN``)
+    unmeshed, then over one-rank meshes (NCCL; gloo with ``dev="cpu"``, a
+    rehearsal with a reduced ``cfg`` and small ``data``) ``1`` and
+    ``1x1``, fsdp off and on, ``TRAIN_MESH["steps"]`` steps each from the
+    same initial parameters; every meshed run must end on the unmeshed
+    run's bits (parameters, optimizer state, losses). Then the real
+    step the dry run is held to: its FLOPs (``FlopCounterMode``) and its
+    peak memory. Returns the record."""
+    import dataclasses
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import comm, sharding
+    from repro_torch.runtime.graphs import leaves
+    from repro_torch.train import step as train_step
+
+    t_start = time.perf_counter()
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get(TRAIN["arch"]),
+                                  n_layers=TRAIN["n_layers"])
+        data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq_len"],
+                                   global_batch=TRAIN["global_batch"], seed=0)
+    steps = TRAIN_MESH["steps"]
+    ocfg = adamw.AdamWConfig(lr=TRAIN["lr"])
+    params = model.init_params(cfg, seed=0, device=dev)
+    batches = [pipeline.batch_for(data, pipeline.PipelineState(i),
+                                  device=dev) for i in range(steps)]
+    cuda = dev == "cuda"
+
+    def run(fn, p, o):
+        spans, losses = [], []
+        timed = device_timer(torch, dev, spans)(fn)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for b in batches:
+            p, o, m = timed(p, o, b)
+            losses.append(m["loss"])
+        peak = None
+        if cuda:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        ms = span_ms(spans)
+        return dict(state=list(leaves(dict(params=p, opt=o))),
+                    losses=losses, step_ms=ms,
+                    median_ms=statistics.median(ms[1:]), peak_mem_gb=peak)
+
+    fn, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=True)
+    # the unmeshed run's final state stays on the device for the
+    # comparisons (each meshed run's peak includes it: held_gb)
+    ref = run(fn, params, adamw.init_state(params, ocfg))
+    held = sum(t.numel() * t.element_size() for t in ref["state"]) / 1e9
+    out = dict(phase="train_mesh", card=card, arch=cfg.name,
+               n_layers=cfg.n_layers, tokens_per_step=data.global_batch
+               * data.seq_len, steps=steps,
+               unmeshed=dict(losses=[float(x) for x in ref["losses"]],
+                             step_ms=ref["step_ms"],
+                             median_ms=ref["median_ms"],
+                             peak_mem_gb=ref["peak_mem_gb"]), held_gb=held,
+               meshed={})
+    bad = []
+    for spec in TRAIN_MESH["specs"]:
+        mesh = mesh_mod.make_serving_mesh(spec, device=dev)
+        for fsdp in (False, True):
+            fn, ins, _ = train_step.make_train_step(
+                cfg, mesh, opt_cfg=ocfg, fsdp=fsdp, remat=True)
+            comm.reset_bytes()
+            comm.reset_launches()
+            got = run(fn, sharding.place(params, ins[0], mesh),
+                      sharding.place(adamw.init_state(params, ocfg), ins[1],
+                                     mesh))
+            bitwise = (all(same_bits(torch, a, b) for a, b in zip(
+                ref["state"], got["state"], strict=True))
+                and all(same_bits(torch, a, b) for a, b in zip(
+                    ref["losses"], got["losses"], strict=True)))
+            name = f"{spec}{'-fsdp' if fsdp else ''}"
+            out["meshed"][name] = dict(
+                bitwise=bitwise, step_ms=got["step_ms"],
+                median_ms=got["median_ms"],
+                minus_unmeshed_ms=got["median_ms"] - ref["median_ms"],
+                peak_mem_gb=got["peak_mem_gb"],
+                collectives_per_step=comm.launches["train"] / steps,
+                bytes_per_step={k: v / steps
+                                for k, v in comm.collective_bytes.items()})
+            if not bitwise:
+                bad.append(name)
+            del got
+    del ref
+    # the dry run's yardstick: one step at '1' with fsdp, its peak memory
+    # (nothing but its inputs live before it) and its FLOPs
+    mesh = mesh_mod.make_serving_mesh("1", device=dev)
+    fn, ins, _ = train_step.make_train_step(cfg, mesh, opt_cfg=ocfg,
+                                            fsdp=True, remat=True)
+    opt = adamw.init_state(params, ocfg)
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    new = fn(params, opt, batches[0])
+    if cuda:
+        torch.cuda.synchronize()
+        out["real_step"] = dict(allocated_before=before,
+                                max_memory_allocated=(
+                                    torch.cuda.max_memory_allocated()))
+    del new
+    with FlopCounterMode(display=False) as flops:
+        new = fn(params, opt, batches[0])
+        del new
+    out.setdefault("real_step", {})["flops"] = flops.get_total_flops()
+    out["seconds"] = time.perf_counter() - t_start
+    emit(out)
+    if bad:
+        fail(f"train_mesh: not bitwise the unmeshed run: {bad}")
+    return out
+
+
+def dryrun_start(dev="cuda", cut=None) -> dict:
+    """Start the ``dryrun`` phase's two ``repro_torch.launch.dryrun``
+    subprocesses (they need no card time, so they run beside
+    ``train_mesh``): the ``train_mesh`` step (TRAIN's cut, mesh ``1``,
+    fsdp) over fake ``dev`` tensors on a one-rank fake mesh, and yi-6b's
+    four cells on the 16x16 fake mesh. ``cut`` (extra dry-run arguments,
+    e.g. ``["--reduced"]``) matches a rehearsal's reduced config.
+    Returns name -> (process, output path, start time)."""
+    import os
+    import shutil
+
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {
+        "train_mesh": ["--arch", TRAIN["arch"], "--shape", "train_4k",
+                       "--spec", "1", "--n-layers", str(TRAIN["n_layers"]),
+                       "--seq-len", str(TRAIN["seq_len"]),
+                       "--global-batch", str(TRAIN["global_batch"]),
+                       "--fsdp", "--device", dev, *(cut or [])],
+        # yi-6b's four cells on 16x16, the training cell apart (the
+        # longest trace), so the two halves run side by side
+        "yi-6b_16x16_train": ["--arch", "yi-6b", "--shape", "train_4k",
+                              "--mesh", "single"],
+        "yi-6b_16x16_serve": ["--arch", "yi-6b", "--skip-shape", "train_4k",
+                              "--mesh", "single"],
+    }
+    started = {}
+    for name, argv in runs.items():
+        path = out_dir / f"{name}.jsonl"
+        log = open(out_dir / f"{name}.log", "w")
+        started[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", str(path)], env=env, stdout=log,
+            stderr=subprocess.STDOUT), path, time.perf_counter())
+        log.close()
+    return started
+
+
+def dryrun_phase(card, real: dict, started: dict) -> dict:
+    """The ``dryrun`` phase: wait for :func:`dryrun_start`'s runs; the
+    ``train_mesh`` step's fake-tensor FLOPs must equal the real step's
+    count exactly and its predicted peak lie within DRYRUN_PEAK_TOL of
+    the real step's ``max_memory_allocated``; yi-6b's 16x16 rows are
+    estimates on datasheet figures. Returns the record."""
+    t_start = time.perf_counter()
+    rows, seconds = {}, {}
+    for name, (proc, path, t0) in started.items():
+        try:
+            code = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds[name] = time.perf_counter() - t0
+        if code != 0:
+            log = path.with_suffix(".log").read_text()
+            print(log[-6000:], file=sys.stderr)
+            fail(f"dryrun {name}: exit {code}")
+        rows[name] = [json.loads(line) for line in path.read_text()
+                      .splitlines()]
+    cut = rows["train_mesh"][0]
+    yi6b = rows["yi-6b_16x16_train"] + rows["yi-6b_16x16_serve"]
+    fake_flops = int(cut["hlo_flops_total"])  # one chip: the rank's count
+    fake_peak = round(cut["peak_memory_gib"] * 2**30)
+    real_peak = real.get("max_memory_allocated")
+    ratio = fake_peak / real_peak if real_peak else None
+    out = dict(phase="dryrun", card=card, seconds=seconds,
+               flops=dict(fake=fake_flops, real=real["flops"],
+                          equal=fake_flops == real["flops"]),
+               peak_bytes=dict(predicted=fake_peak, real=real_peak,
+                               ratio=ratio,
+                               allocated_before=real.get(
+                                   "allocated_before")),
+               train_mesh_row=cut, yi6b_16x16=yi6b,
+               waited_s=time.perf_counter() - t_start)
+    emit(out)
+    print(f"dryrun: FLOPs fake {fake_flops} real {real['flops']}; peak "
+          f"predicted {fake_peak} real {real_peak} ratio {ratio}",
+          flush=True)
+    if fake_flops != real["flops"]:
+        fail(f"dryrun: fake-tensor FLOPs {fake_flops} != the real step's "
+             f"{real['flops']}")
+    if ratio is not None and abs(ratio - 1) > DRYRUN_PEAK_TOL:
+        fail(f"dryrun: predicted peak {fake_peak} is {ratio:.3f} x the "
+             f"real {real_peak}")
+    if len(yi6b) != 4:
+        fail(f"dryrun: {len(yi6b)} yi-6b rows, want 4")
     return out
 
 
@@ -3408,6 +3647,16 @@ def main(argv=None) -> int:
         emit(records[-1])
         records.append(memory_line(torch, "before train"))
         records.append(train_phase(torch, np, configs, model, card))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dryruns = dryrun_start()
+        records.append(train_mesh_phase(torch, configs, model, card))
+        records.append(dryrun_phase(card, records[-1]["real_step"],
+                                    dryruns))
+        records.append(dict(phase="train_mesh_dryrun_seconds",
+                            seconds=time.perf_counter() - t0))
+        emit(records[-1])
+        torch.cuda.empty_cache()
         records.append(q8_reduced_check(torch, np, configs, model,
                                         sectored_decode, quantized_kv))
 

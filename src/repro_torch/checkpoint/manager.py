@@ -62,32 +62,69 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
-def _write_npz(path: str, tree) -> None:
-    """``np.savez(path, leaf_0=..., ...)``, one leaf in host memory at a
-    time."""
+def _write_npz(path: str, tensors) -> tuple[list, list]:
+    """``np.savez(path, leaf_0=..., ...)`` of the tensors ``tensors``
+    yields, one in host memory at a time; every member is stamped
+    1980-01-01, so the same state is written as the same bytes. Returns
+    the shapes and dtype names written."""
+    shapes, dtypes = [], []
     with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
-        for i, t in enumerate(leaves(tree)):
-            with zf.open(f"leaf_{i}.npy", "w", force_zip64=True) as f:
+        for i, t in enumerate(tensors):
+            shapes.append(list(t.shape))
+            dtypes.append(_dtype_name(t))
+            info = zipfile.ZipInfo(f"leaf_{i}.npy",
+                                   date_time=(1980, 1, 1, 0, 0, 0))
+            with zf.open(info, "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, _to_numpy(t),
                                           allow_pickle=False)
+    return shapes, dtypes
+
+
+def _gathered(tree, mesh, shardings):
+    """Every leaf of a tree of rank blocks gathered to its global tensor,
+    one leaf at a time (every rank takes part)."""
+    from repro_torch.parallel import comm
+    mc = comm.MeshComm(mesh)
+    for t, spec in zip(leaves(tree), sharding.spec_leaves(shardings),
+                       strict=True):
+        yield mc.gather(t, spec, purpose="checkpoint")
 
 
 def save(directory: str, step: int, tree, *, host_id: int = 0,
-         n_hosts: int = 1) -> str:
-    """Write checkpoint ``step`` of ``tree``; returns its path."""
+         n_hosts: int = 1, mesh=None, shardings=None) -> str | None:
+    """Write checkpoint ``step`` of ``tree``; returns its path.
+
+    From a mesh (``mesh`` and ``shardings``, ``tree`` holding this rank's
+    blocks): every rank gathers the leaves one at a time, rank 0 writes
+    them in the one-host format (the file the unmeshed save of the
+    global tree writes, byte for byte) and the others write nothing and
+    return None; all ranks leave after a barrier, once the checkpoint is
+    published."""
+    import torch.distributed as dist
+    if (mesh is None) != (shardings is None):
+        raise ValueError("save from a mesh needs both mesh= and "
+                         "shardings=")
+    tensors = leaves(tree)
+    if mesh is not None:
+        tensors = _gathered(tree, mesh, shardings)
+        if dist.get_rank() != 0:
+            for _ in tensors:
+                pass
+            dist.barrier()
+            return None
     path = os.path.join(directory, f"step_{step:08d}")
     tmp = path + f".tmp{host_id}"
     os.makedirs(tmp, exist_ok=True)
-    _write_npz(os.path.join(tmp, f"shard_{host_id}.npz"), tree)
+    shapes, dtypes = _write_npz(os.path.join(tmp, f"shard_{host_id}.npz"),
+                                tensors)
     if host_id == 0:
-        ls = list(leaves(tree))
         manifest = dict(
             step=step,
             n_hosts=n_hosts,
             treedef=f"PyTreeDef({treedef_str(tree)})",
-            shapes=[list(t.shape) for t in ls],
-            dtypes=[_dtype_name(t) for t in ls],
+            shapes=shapes,
+            dtypes=dtypes,
         )
         with open(os.path.join(tmp, MANIFEST), "w") as f:
             json.dump(manifest, f)
@@ -95,6 +132,8 @@ def save(directory: str, step: int, tree, *, host_id: int = 0,
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.replace(tmp, path)
+    if mesh is not None:
+        dist.barrier()
     return path
 
 

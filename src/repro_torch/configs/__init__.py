@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig, MoEConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES, ModelConfig, MoEConfig, ShapeConfig)
 
 from repro_torch.configs.musicgen_large import CONFIG as musicgen_large
 from repro_torch.configs.chatglm3_6b import CONFIG as chatglm3_6b

@@ -1,11 +1,12 @@
 """Model/architecture configuration schema (counterpart of the JAX
 package's ``configs/base.py``).
 
-Every assigned architecture is expressed as a :class:`ModelConfig`; tests
-instantiate ``reduced()`` configs on the CPU. ``param_count`` and
-``active_param_count`` give the training phase its 6·N·tokens model
-FLOPs; the reference's ``token_specs`` and input shapes (for its dry run
-and roofline tools) wait for the port's tooling slice.
+Every assigned architecture is expressed as a :class:`ModelConfig`; the
+four LM shapes (train_4k / prefill_32k / decode_32k / long_500k) are
+global. ``token_specs`` gives fake tensors (shapes and dtypes, no
+storage: the port's stand-in for the reference's ``ShapeDtypeStruct``)
+for the dry run; tests instantiate ``reduced()`` configs on the CPU.
+``param_count`` and ``active_param_count`` give 6·N·tokens model FLOPs.
 """
 
 from __future__ import annotations
@@ -126,3 +127,35 @@ class ModelConfig:
                                   n_shared_experts=self.moe.n_shared_experts)
         kw.update(overrides)
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def fake(shape, dtype, device="cpu"):
+    """A fake tensor of ``shape`` and ``dtype`` (no storage)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return torch.empty(shape, dtype=dtype, device=device)
+
+
+def token_specs(shape: ShapeConfig):
+    """Fake tensors for a training/prefill batch."""
+    import torch
+    B, S = shape.global_batch, shape.seq_len
+    return dict(tokens=fake((B, S), torch.int32),
+                labels=fake((B, S), torch.int32))

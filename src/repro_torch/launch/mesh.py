@@ -18,10 +18,20 @@ names over every rank of the default process group:
 * a spec needing more ranks than the group has raises ``ValueError``
   naming the launcher; one needing fewer raises too, since every rank
   runs the session and a rank outside the mesh would have no slots.
+
+:func:`make_dryrun_mesh` is the dry run's counterpart of the reference's
+``--xla_force_host_platform_device_count=512``: the production mesh
+(``16x16``, or ``2x16x16`` with ``pod``) over a *fake* process group
+(PyTorch's ``FakeStore`` and ``"fake"`` backend: every collective
+returns at once and moves nothing), seen from rank 0. Only
+``launch.dryrun`` reaches it: it refuses to start where a process group
+exists, the process that made it tears it down, and the meshes above
+never fall back to it (a fake group is not the backend they need).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from pathlib import Path
@@ -114,3 +124,28 @@ def make_serving_mesh(spec: str, *, device=None):
     N``)."""
     shape, axes = parse_mesh_shape(spec)
     return make_mesh(shape, axes, device=device)
+
+
+@contextlib.contextmanager
+def make_dryrun_mesh(multi_pod: bool = False, *, spec: str | None = None):
+    """The production mesh over a fake process group, as rank 0 (or the
+    mesh of ``spec``, ``'d'``/``'dxm'``), for the block; the group is
+    destroyed after it. Raises ``RuntimeError`` where a process group
+    already exists."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a dry-run mesh needs a process without a process group; this "
+            f"one holds a {dist.get_backend()!r} group")
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if spec is not None:
+        shape, axes = parse_mesh_shape(spec)
+    else:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    finally:
+        dist.destroy_process_group()

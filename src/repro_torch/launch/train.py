@@ -49,7 +49,7 @@ def main(argv=None) -> loop.LoopResult:
     params = model.init_params(cfg, seed=0, device=dev)
     ocfg = adamw.AdamWConfig(lr=args.lr, compress_grads=args.compress_grads)
     opt = adamw.init_state(params, ocfg)
-    step = make_train_step(cfg, opt_cfg=ocfg, remat=False)
+    step, _, _ = make_train_step(cfg, opt_cfg=ocfg, remat=False)
     data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                global_batch=args.batch)
     lc = loop.LoopConfig(total_steps=args.steps, checkpoint_every=50,

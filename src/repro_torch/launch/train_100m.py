@@ -45,7 +45,7 @@ def main(argv=None) -> loop.LoopResult:
     params = model.init_params(cfg, seed=0, device=dev)
     ocfg = adamw.AdamWConfig(lr=1e-3)
     opt = adamw.init_state(params, ocfg)
-    step = make_train_step(cfg, opt_cfg=ocfg, remat=False)
+    step, _, _ = make_train_step(cfg, opt_cfg=ocfg, remat=False)
     data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=8)
     lc = loop.LoopConfig(total_steps=args.steps, checkpoint_every=100,
                          checkpoint_dir=args.checkpoint_dir)

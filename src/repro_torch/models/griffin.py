@@ -51,15 +51,21 @@ def _gates(params: dict, xf: torch.Tensor):
     return a, b
 
 
+def scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t h_{t-1} + b_t, token by token: a, b (B, S, D), h0 (B,
+    D). Returns (every h_t (B, S, D), the last)."""
+    h = h0
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
 def rglru(params: dict, x: torch.Tensor, h0: torch.Tensor):
     """x: (B, S, D); h0: (B, D) f32. Returns (y (B, S, D), h_last)."""
     a, b = _gates(params, x.float())
-    h = h0
-    hs = []
-    for t in range(x.shape[1]):
-        h = a[:, t] * h + b[:, t]
-        hs.append(h)
-    hh = torch.stack(hs, dim=1)
+    hh, h = scan(a, b, h0)
     y = torch.matmul(hh, params["w_out"].float())
     return y.to(x.dtype), h
 

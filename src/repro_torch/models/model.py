@@ -140,22 +140,30 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def forward(params: dict, cfg, tokens=None, *, embeds=None,
-            positions=None, remat: bool = False) -> torch.Tensor:
+            positions=None, remat: bool = False,
+            layer_hook=None) -> torch.Tensor:
     """Trunk: tokens (B, S) or embeds (B, S, D) -> final hidden states
     (B, S, D). ``remat`` recomputes each layer's activations in the
     backward pass instead of keeping them (the reference's
     ``jax.checkpoint`` of the layer body): the same ops on the same
-    inputs, so the loss and every gradient keep their bits."""
+    inputs, so the loss and every gradient keep their bits.
+
+    ``layer_hook(i, lp) -> lp`` maps layer ``i``'s parameters before the
+    layer uses them (a mesh step gathers the rank's blocks there); it runs
+    inside the remat region, so a gathered layer is freed after the
+    forward and gathered again for the recompute. ``None`` is the
+    identity."""
     x = layers.embed(params, tokens) if embeds is None else embeds
     B, S = x.shape[:2]
     if positions is None:
         positions = _positions(B, S, x.device)
-    x = _layers_over_prompt(params, cfg, x, positions, remat=remat)
+    x = _layers_over_prompt(params, cfg, x, positions, remat=remat,
+                            layer_hook=layer_hook)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, layer_hook=None) -> torch.Tensor:
     """Causal LM loss: the mean over all positions of
     ``logsumexp(logits_f32) - gold``.
 
@@ -164,7 +172,7 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
     shard-locally; every other term of that sum is 0, so it equals a
     ``torch.gather`` of the label's logit exactly, which spares a
     (B, S, vocab) f32 tensor here."""
-    hidden = forward(params, cfg, tokens, remat=remat)
+    hidden = forward(params, cfg, tokens, remat=remat, layer_hook=layer_hook)
     logits = logits_fn(params, cfg, hidden).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -172,9 +180,12 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
 
 
 def _layer_over_prompt(lp: dict, cfg, kind: str, x: torch.Tensor,
-                       positions: torch.Tensor) -> torch.Tensor:
+                       positions: torch.Tensor, i: int = 0,
+                       layer_hook=None) -> torch.Tensor:
     """One layer of the reference's ``forward``, a recurrent one from a
     zero state."""
+    if layer_hook is not None:
+        lp = layer_hook(i, lp)
     B = x.shape[0]
     if kind == "attn":
         return _attn_block(lp, cfg, x, positions, window=_window(cfg))
@@ -187,7 +198,8 @@ def _layer_over_prompt(lp: dict, cfg, kind: str, x: torch.Tensor,
 
 def _layers_over_prompt(params: dict, cfg, x: torch.Tensor,
                         positions: torch.Tensor, state=None,
-                        remat: bool = False) -> torch.Tensor:
+                        remat: bool = False,
+                        layer_hook=None) -> torch.Tensor:
     """The layer stack over a whole prompt, each recurrent layer from a
     zero state (the reference's ``forward``). Without ``state``, ``remat``
     runs each layer under ``torch.utils.checkpoint`` (when autograd
@@ -195,7 +207,7 @@ def _layers_over_prompt(params: dict, cfg, x: torch.Tensor,
     prompt), every layer's decode state is written into it: each
     attention layer's K/V re-projected into rows ``[:S]``, each RWKV
     block's ``(S, last_t, last_c)`` and each RG-LRU's last hidden
-    state."""
+    state. ``layer_hook`` (without ``state``): see :func:`forward`."""
     B, S = x.shape[:2]
     if state is None:
         remat = remat and torch.is_grad_enabled()
@@ -203,9 +215,11 @@ def _layers_over_prompt(params: dict, cfg, x: torch.Tensor,
             lp = layer_params(params, i)
             if remat:
                 x = checkpoint.checkpoint(_layer_over_prompt, lp, cfg, kind,
-                                          x, positions, use_reentrant=False)
+                                          x, positions, i, layer_hook,
+                                          use_reentrant=False)
             else:
-                x = _layer_over_prompt(lp, cfg, kind, x, positions)
+                x = _layer_over_prompt(lp, cfg, kind, x, positions, i,
+                                       layer_hook)
         return x
     for i, kind in enumerate(cfg.layer_kinds):
         lp = layer_params(params, i)

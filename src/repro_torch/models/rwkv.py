@@ -75,15 +75,22 @@ def time_mix(params: dict, cfg, x: torch.Tensor, state: torch.Tensor,
     dec = torch.matmul(xw, params["w_decay"]).float() + params["decay_bias"]
     w = torch.exp(-torch.exp(dec)).reshape(B, S, h, hd)
     u = params["u"][None, :, :, None]
+    out, state = wkv_scan(r, k, v, w, u, state)
+    out = out.reshape(B, S, D)
+    out = torch.matmul((out * g).to(x.dtype), params["wo"])
+    return out, state, x[:, -1, :]
 
+
+def wkv_scan(r, k, v, w, u, state):
+    """The WKV recurrence, token by token: r, k, v, w (B, S, h, hd), u
+    (1, h, hd, 1), state (B, h, hd, hd), all f32. Returns (out (B, S, h,
+    hd), the last state)."""
     outs = []
-    for t in range(S):
+    for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, h, hd, hd)
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t], state + u * kv))
         state = w[:, t, :, :, None] * state + kv
-    out = torch.stack(outs, dim=1).reshape(B, S, D)
-    out = torch.matmul((out * g).to(x.dtype), params["wo"])
-    return out, state, x[:, -1, :]
+    return torch.stack(outs, dim=1), state
 
 
 def channel_mix(params: dict, cfg, x: torch.Tensor, prev_x: torch.Tensor):

@@ -92,14 +92,24 @@ def _decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_roundtrip(g: torch.Tensor, ef: torch.Tensor):
-    """Error-feedback int8 round trip: returns ``(g_hat, new_ef)``, g_hat
-    in ``g``'s dtype and the new error in bf16. Chunked: the scale is the
-    exact max over every chunk, then each chunk is quantized with it."""
+def _absmax(g: torch.Tensor, ef: torch.Tensor) -> torch.Tensor:
+    """max |g + ef| in f32, chunk by chunk (exact)."""
     absmax = torch.zeros((), dtype=torch.float32, device=g.device)
     for c in _chunks(g):
         g32 = g[c].float() + ef[c].float()
         absmax = torch.maximum(absmax, torch.max(torch.abs(g32)))
+    return absmax
+
+
+def compress_roundtrip(g: torch.Tensor, ef: torch.Tensor,
+                       absmax: torch.Tensor | None = None):
+    """Error-feedback int8 round trip: returns ``(g_hat, new_ef)``, g_hat
+    in ``g``'s dtype and the new error in bf16. Chunked: the scale is the
+    exact max over every chunk, then each chunk is quantized with it.
+    ``absmax`` (the max over the whole leaf, where ``g`` is one rank's
+    block of it) replaces the block's own."""
+    if absmax is None:
+        absmax = _absmax(g, ef)
     scale = torch.clamp_min(absmax, 1e-12) / 127.0
     g_hat = torch.empty_like(g)
     new_ef = torch.empty(g.shape, dtype=torch.bfloat16, device=g.device)
@@ -112,12 +122,16 @@ def compress_roundtrip(g: torch.Tensor, ef: torch.Tensor):
     return g_hat, new_ef
 
 
+def _sum_squares(g: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(g[c].float())) for c in _chunks(g))
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 squares (leaf by leaf, in
     :func:`leaves` order)."""
     total = None
     for g in grads:
-        s = sum(torch.sum(torch.square(g[c].float())) for c in _chunks(g))
+        s = _sum_squares(g)
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -128,11 +142,20 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig):
     return update_leaves(params, list(leaves(grads)), state, cfg)
 
 
-def update_leaves(params, grads: list, state: dict, cfg: AdamWConfig):
+def update_leaves(params, grads: list, state: dict, cfg: AdamWConfig, *,
+                  mesh_comm=None, specs: list | None = None):
     """:func:`apply_updates` over ``grads`` given as a list in
     :func:`leaves` order. The list is consumed: each entry is dropped
     once its leaf is updated, so a caller that holds no other reference
-    frees the gradients as the new state grows."""
+    frees the gradients as the new state grows.
+
+    With ``mesh_comm`` (a :class:`~repro_torch.parallel.comm.MeshComm`)
+    every leaf of ``params``, ``grads`` and the state is this rank's
+    block under its spec in ``specs``, and the update is the unsharded
+    one's block: the elementwise part is, the int8 scale of a leaf is the
+    max over every rank (exact), and the global norm sums each leaf's
+    squares over the ranks holding its distinct blocks (another order
+    than the unsharded sum where a leaf is split)."""
     params_l = list(leaves(params))
     if len(grads) != len(params_l):
         raise ValueError(f"{len(grads)} gradients for {len(params_l)} "
@@ -141,11 +164,20 @@ def update_leaves(params, grads: list, state: dict, cfg: AdamWConfig):
     step = state["step"] + 1
     new_ef = None
     if cfg.compress_grads:
+        efs = list(leaves(state["ef"]))
+        absmax = [None] * len(efs)
+        if mesh_comm is not None:
+            absmax = list(mesh_comm.max_over_ranks(torch.stack(
+                [_absmax(g, ef) for g, ef in zip(grads, efs)])))
         new_ef = []
-        for i, ef in enumerate(leaves(state["ef"])):
-            grads[i], e = compress_roundtrip(grads[i], ef)
+        for i, ef in enumerate(efs):
+            grads[i], e = compress_roundtrip(grads[i], ef, absmax[i])
             new_ef.append(e)
-    gnorm = global_norm(grads)
+    if mesh_comm is None:
+        gnorm = global_norm(grads)
+    else:
+        gnorm = torch.sqrt(mesh_comm.sum_of_shards(
+            [_sum_squares(g) for g in grads], specs))
     scale = torch.clamp_max(
         _f32(cfg.grad_clip, dev) / torch.clamp_min(gnorm, 1e-12), 1.0)
 

@@ -1,2 +1,2 @@
 """Multi-device placement: the sharding rules (:mod:`.sharding`) and the
-collectives the serving mesh runs (:mod:`.comm`)."""
+collectives the serving and training meshes run (:mod:`.comm`)."""

@@ -1,4 +1,5 @@
-"""The collectives a serving mesh runs, counted like kernel launches.
+"""The collectives a mesh runs, counted like kernel launches and by
+bytes.
 
 Every rank of a mesh runs the same session (SPMD, one process per
 device), so a collective is issued by every rank of its group at the same
@@ -10,26 +11,58 @@ stream bitwise the unmeshed one.
 ``launches`` counts the calls by purpose: ``wave`` (inside a decode
 wave: its tokens, logprobs and selected KV pages), ``rows`` (a wave
 buffer's rows gathered for the host or the demand merge) and ``prefill``
-(the donor's prefill handed to every rank). A captured wave adds its
-collectives on every replay, as its kernel launches
+(the donor's prefill handed to every rank), ``train`` (a training
+step's parameter gathers and gradient reductions, :class:`MeshComm`)
+and ``checkpoint`` (leaves gathered for a save). A captured wave adds
+its collectives on every replay, as its kernel launches
 (``runtime.graphs.KERNEL_COUNTERS``).
+
+``collective_bytes`` counts bytes by the reference's five kinds (its
+``launch/roofline.py``): each logical collective adds its output bytes
+on this rank, as the reference reads them off its compiled program. A
+reduction the port carries out as an all-to-all plus an ordered local
+sum (below) is counted as the reduce-scatter or all-reduce it stands
+for, in the gradient's own dtype.
+
+Training over a mesh (:class:`MeshComm`): parameters are stored as each
+rank's block and gathered before use by :func:`gather_param`, whose
+backward reduces the gradient. Over the data axes (``pod``, ``data``)
+every rank holds other rows of the batch, so the gradients are summed:
+in f32 and in rank order (an all-to-all brings each rank the pieces it
+keeps, which it adds in order), so that ``D`` data ranks give the bits
+of one rank taking ``D`` microbatches. Over ``model`` every rank
+computes the same full gradient from the same rows (the axis stores
+shards, it does not split the compute), so the backward takes the
+rank's slice and sums nothing: a sum there would multiply the gradient
+by the axis size.
 
 On the card the group is NCCL, on the CPU gloo
 (``repro_torch.launch.mesh``). ``torch.distributed.all_gather`` with a
 list of outputs exists under that name in every PyTorch this runs on.
 
-Leaf module: imports torch only.
+Imports torch and the sharding rules only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel import sharding
+
 #: collective calls by purpose (see the module docstring)
-launches = {"wave": 0, "rows": 0, "prefill": 0}
+launches = {"wave": 0, "rows": 0, "prefill": 0, "train": 0,
+            "checkpoint": 0}
+
+#: the reference's collective kinds (its ``launch/roofline.py``)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+#: output bytes on this rank by kind since :func:`reset_bytes`
+collective_bytes = dict.fromkeys(KINDS, 0)
 
 
 def reset_launches() -> None:
@@ -37,14 +70,29 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
+def reset_bytes() -> None:
+    for key in collective_bytes:
+        collective_bytes[key] = 0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _gather_list(t: torch.Tensor, group) -> list:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return parts
+
+
 def all_gather_cat(t: torch.Tensor, group, dim: int = 0, *,
                    purpose: str = "wave") -> torch.Tensor:
     """Every rank's ``t`` (equal shapes) concatenated along ``dim`` in
     the group's rank order."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
+    out = torch.cat(_gather_list(t, group), dim)
     launches[purpose] += 1
-    return torch.cat(parts, dim)
+    collective_bytes["all-gather"] += _nbytes(out)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +202,202 @@ class PageShard:
         full = pages.new_zeros((B, pb * self.size, page, hkv, hd))
         full[b, idx, :, h, :] = selected
         return full
+
+
+# -- training over a mesh ------------------------------------------------------
+
+
+class MeshComm:
+    """One rank's view of a DeviceMesh for a training step: its
+    coordinates, a group per axis of more than one rank, and the
+    collectives a tree stored as rank blocks needs. Axes of size 1 issue
+    no collective (a one-rank mesh runs none at all)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = sharding.mesh_axes(mesh)
+        self.coords = sharding.mesh_coords(mesh)
+        self.groups = {a: mesh.get_group(a) for a, n in self.sizes.items()
+                       if n > 1}
+        #: data axes of more than one rank, outermost first
+        self.data = tuple(a for a in sharding.data_axes(mesh)
+                          if self.sizes[a] > 1)
+        self.n_data = math.prod(self.sizes[a] for a in self.data)
+        names = tuple(self.sizes)
+        ranks = mesh.mesh.reshape(-1).tolist()
+        by_rank = sorted(zip(ranks, _indices(tuple(self.sizes.values()))))
+        #: every rank's coordinates, in rank order
+        self.rank_coords = [dict(zip(names, idx)) for _, idx in by_rank]
+        self.world = len(ranks)
+
+    def data_shard(self) -> tuple[int, int]:
+        """``(index, count)`` of this rank's rows of a global batch: the
+        data axes flattened, the outermost first (the batch spec's
+        order)."""
+        index, count = 0, 1
+        for a in sharding.data_axes(self.mesh):
+            index = index * self.sizes[a] + self.coords[a]
+            count *= self.sizes[a]
+        return index, count
+
+    def block(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of a global tensor (a view)."""
+        return t[sharding.local_slice(spec, tuple(t.shape), self.mesh,
+                                      self.coords)]
+
+    def gather(self, t: torch.Tensor, spec, *,
+               purpose: str = "train") -> torch.Tensor:
+        """The global tensor from this rank's block ``t`` of it under
+        ``spec``: one all-gather per split axis (a dim split over several
+        axes gathers the innermost first)."""
+        for dim, entry in enumerate(spec):
+            for a in reversed(sharding._axes_of(entry)):
+                if a in self.groups:
+                    t = all_gather_cat(t, self.groups[a], dim,
+                                       purpose=purpose)
+        return t
+
+    def _all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` (n, ...) with n the axis size: row j goes to the axis's
+        rank j; returns (n, ...) whose row j came from rank j."""
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=self.groups[axis])
+        launches["train"] += 1
+        return out
+
+    def _over_data(self, pieces: torch.Tensor) -> torch.Tensor:
+        """``pieces`` (n_inner, ...) from the innermost data axis's ranks
+        -> (n_data, ...) from every data rank, in rank order: the outer
+        data axes all-gather it."""
+        for a in reversed(self.data[:-1]):
+            pieces = torch.cat(_gather_list(pieces, self.groups[a]), 0)
+            launches["train"] += 1
+        return pieces
+
+    def reduce_grad(self, g: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block, under ``spec``, of the gradient summed over
+        the data ranks: ``g`` is the rank's full gradient of the
+        parameter. Over ``model`` the rank's slice is taken; over the data
+        axes the sum is in f32, in rank order, and left undivided. With a
+        single data rank ``g``'s slice is returned in its own dtype."""
+        data = set(self.data)
+        model_spec = tuple(
+            tuple(a for a in sharding._axes_of(e) if a not in data) or None
+            for e in spec)
+        g = self.block(g, model_spec)
+        if not self.data:
+            return g
+        inner = self.data[-1]
+        n_inner = self.sizes[inner]
+        dims = [d for d, e in enumerate(spec)
+                if set(sharding._axes_of(e)) & data]
+        if dims:  # stored split over data: a reduce-scatter
+            d = dims[0]
+            pieces = self._all_to_all(torch.stack(g.chunk(n_inner, d)), inner)
+            total = self._sum_rows(self._over_data(pieces))
+            collective_bytes["reduce-scatter"] += _nbytes(pieces[0])
+            if len(self.data) > 1:
+                collective_bytes["all-reduce"] += _nbytes(pieces[0])
+            return total
+        # replicated over data: an all-reduce (a reduce-scatter of a flat
+        # view, then an all-gather of the f32 sums)
+        collective_bytes["all-reduce"] += _nbytes(g)
+        flat = g.reshape(-1)
+        pad = (-flat.numel()) % n_inner
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        pieces = self._all_to_all(flat.reshape(n_inner, -1), inner)
+        total = self._sum_rows(self._over_data(pieces))
+        full = torch.cat(_gather_list(total, self.groups[inner]), 0)
+        launches["train"] += 1
+        return full[:g.numel()].reshape(g.shape)
+
+    @staticmethod
+    def _sum_rows(pieces: torch.Tensor) -> torch.Tensor:
+        """``0 + pieces[0] + pieces[1] + ...`` in f32."""
+        acc = torch.zeros(pieces.shape[1:], dtype=torch.float32,
+                          device=pieces.device)
+        for piece in pieces:
+            acc = acc + piece.float()
+        return acc
+
+    def _every_rank(self, x: torch.Tensor) -> torch.Tensor:
+        """(world, ...) of every rank's ``x``, in rank order."""
+        if self.world == 1:
+            return x[None]
+        parts = _gather_list(x, None)
+        launches["train"] += 1
+        collective_bytes["all-reduce"] += _nbytes(x)
+        return torch.stack(parts)
+
+    def sum_over_data(self, x: torch.Tensor) -> torch.Tensor:
+        """``0 + x_0 + x_1 + ...`` over the data ranks in rank order (a
+        rank's ``x`` is the same on every rank of its ``model`` group)."""
+        if not self.data:
+            return torch.zeros_like(x) + x
+        every = self._every_rank(x)
+        rows = [r for r, c in enumerate(self.rank_coords)
+                if all(c[a] == 0 for a in self.sizes if a not in self.data)]
+        acc = torch.zeros_like(x)
+        for r in rows:
+            acc = acc + every[r]
+        return acc
+
+    def max_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of every rank's ``x``."""
+        return torch.amax(self._every_rank(x), dim=0)
+
+    def sum_of_shards(self, local: list, specs: list) -> torch.Tensor:
+        """Sum over leaves, in order, of each leaf's value summed over
+        the ranks holding its distinct blocks (for every leaf a 0-d f32
+        tensor of this rank's block, e.g. its sum of squares): the ranks
+        at coordinate 0 of every axis the leaf is not split over, in rank
+        order."""
+        every = self._every_rank(torch.stack(local))
+        total = None
+        for j, spec in enumerate(specs):
+            split = {a for a in sharding.spec_axes(spec)
+                     if self.sizes.get(a, 1) > 1}
+            rows = [r for r, c in enumerate(self.rank_coords)
+                    if all(c[a] == 0 for a in self.sizes if a not in split)]
+            s = every[rows[0], j]
+            for r in rows[1:]:
+                s = s + every[r, j]
+            total = s if total is None else total + s
+        return total
+
+
+def _indices(shape: tuple):
+    """Every index tuple of ``shape``, row-major."""
+    if not shape:
+        yield ()
+        return
+    for i in range(shape[0]):
+        for rest in _indices(shape[1:]):
+            yield (i, *rest)
+
+
+class _GatherParam(torch.autograd.Function):
+    """Forward: the global parameter from the rank's block. Backward:
+    :meth:`MeshComm.reduce_grad` of the full gradient, handed to ``sink``
+    (``sink(key, block)``), so the f32 sum never passes through
+    autograd's cast back to the block's dtype; the block itself gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, block, mc, spec, sink, key):
+        ctx.mc, ctx.spec, ctx.sink, ctx.key = mc, spec, sink, key
+        return mc.gather(block, spec)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.sink(ctx.key, ctx.mc.reduce_grad(grad, ctx.spec))
+        return None, None, None, None, None
+
+
+def gather_param(block: torch.Tensor, mc: MeshComm, spec, sink,
+                 key) -> torch.Tensor:
+    """The global parameter from this rank's ``block`` under ``spec``;
+    its gradient reaches ``sink(key, reduced block)`` (see
+    :class:`_GatherParam`)."""
+    return _GatherParam.apply(block, mc, spec, sink, key)

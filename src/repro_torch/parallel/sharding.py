@@ -42,6 +42,9 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):
+        return tuple(self)
+
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
 
@@ -207,7 +210,7 @@ def drop_indivisible(spec, shape, mesh) -> tuple[PartitionSpec, list]:
         ax = _axes_of(entry)
         prod = 1
         for a in ax:
-            prod *= sizes[a]
+            prod *= sizes.get(a, 1)
         if ax and shape[i] % prod != 0:
             dropped.extend(ax)
             entries[i] = None
@@ -238,7 +241,8 @@ def fix_spec(spec, shape, mesh) -> PartitionSpec:
 
 def param_shardings(mesh, params, fsdp: bool = False):
     """Spec tree for a parameter tree (tensors or fake tensors from
-    :func:`abstract`)."""
+    :func:`abstract`). On a mesh without a 'model' axis (a training mesh
+    ``'d'``) the specs still name it, as one rank wide."""
     f = "data" if (fsdp and "data" in mesh_axes(mesh)) else None
     return map_named(
         lambda name, leaf: fix_spec(param_spec(name, leaf, f),
@@ -369,15 +373,40 @@ def local_slice(spec, shape, mesh, coords: dict[str, int]) -> tuple:
     """The index (a tuple of slices) of one rank's block of a global
     array of ``shape`` under ``spec``; ``coords`` maps each axis to the
     rank's index along it. A dim split over several axes is split over
-    them in order, the first one outermost (as a named sharding does)."""
+    them in order, the first one outermost (as a named sharding does).
+    An axis the mesh lacks is one rank wide."""
     sizes = mesh_axes(mesh)
     index = []
     for i, n in enumerate(shape):
         ax = _axes_of(spec[i] if i < len(spec) else None)
         parts, pos = 1, 0
         for a in ax:
-            pos = pos * sizes[a] + coords[a]
-            parts *= sizes[a]
+            pos = pos * sizes.get(a, 1) + coords.get(a, 0)
+            parts *= sizes.get(a, 1)
         block = n // parts
         index.append(slice(pos * block, (pos + 1) * block))
     return tuple(index)
+
+
+def opt_state_shardings(param_specs, opt_cfg) -> dict:
+    """The optimizer state's spec tree, as the reference's
+    ``train/step.py`` builds it: ``mu`` and ``nu`` (and ``ef`` with
+    ``compress_grads``) under the parameters' specs, ``step``
+    replicated."""
+    out = dict(mu=param_specs, nu=param_specs, step=P())
+    if opt_cfg.compress_grads:
+        out["ef"] = param_specs
+    return out
+
+
+def place(tree, specs, mesh, coords: dict | None = None):
+    """``tree`` (global tensors) with every leaf cut to this rank's block
+    under the spec tree ``specs``; a block that is part of its leaf is a
+    copy, a whole leaf is kept as it is."""
+    from repro_torch.runtime.graphs import leaves, unflatten
+    coords = coords if coords is not None else mesh_coords(mesh)
+    blocks = []
+    for t, spec in zip(leaves(tree), spec_leaves(specs), strict=True):
+        block = t[local_slice(spec, tuple(t.shape), mesh, coords)]
+        blocks.append(block.clone() if block.numel() != t.numel() else t)
+    return unflatten(tree, blocks)

@@ -12,6 +12,14 @@
 
 The state lives on the device of the first parameter; batches are made
 there and checkpoints restored there.
+
+A step made by ``make_train_step(cfg, mesh)`` carries its mesh and
+specs, and the loop runs as that rank's program: the state is the rank's
+blocks, each step reads the rank's rows of the global batch
+(:func:`rank_rows`), a checkpoint is written by rank
+0 in the one-host format (``manager.save(mesh=)``) and restored onto the
+mesh by each rank taking its blocks (``manager.restore(mesh=)``), so a
+run may restart on another mesh.
 """
 
 from __future__ import annotations
@@ -45,24 +53,41 @@ class LoopResult:
     restored_from: int  # step restored at start (0 = fresh)
 
 
+def rank_rows(batch: dict, shard: int, n_shards: int) -> dict:
+    """Data shard ``shard``'s rows of a global batch (views). A rank of
+    a mesh step reads these, not ``pipeline.batch_for(shard=)``: there the
+    reference's shard ``k > 0`` is a stream of its own, seeded by ``k``."""
+    rows = next(iter(batch.values())).shape[0] // n_shards
+    return {k: t[shard * rows:(shard + 1) * rows] for k, t in batch.items()}
+
+
 def run(train_step: Callable, params, opt_state, data_cfg: pipeline.DataConfig,
         loop_cfg: LoopConfig, *, fail_injector: Callable | None = None
         ) -> tuple:
     """Run the loop; returns (params, opt_state, LoopResult)."""
     dev = next(leaves(params)).device
     state = dict(params=params, opt=opt_state)
+    mesh = getattr(train_step, "mesh", None)
+    placed, shard, n_shards = {}, 0, 1
+    if mesh is not None:
+        specs = train_step.in_specs
+        placed = dict(mesh=mesh, shardings=dict(params=specs[0],
+                                                opt=specs[1]))
+        shard, n_shards = train_step.mesh_comm.data_shard()
     start_step = 0
     ckpt = manager.latest(loop_cfg.checkpoint_dir)
     if ckpt is not None:
-        state, start_step = manager.restore(ckpt, state, device=dev)
+        state, start_step = manager.restore(ckpt, state, device=dev,
+                                            **placed)
     restored_from = start_step
 
     losses = []
     retries = 0
     step = start_step
     while step < loop_cfg.total_steps:
-        batch = pipeline.batch_for(data_cfg, pipeline.PipelineState(step),
-                                   device=dev)
+        batch = rank_rows(pipeline.batch_for(
+            data_cfg, pipeline.PipelineState(step), device=dev), shard,
+            n_shards)
         attempt = 0
         while True:
             t0 = time.time()
@@ -89,7 +114,7 @@ def run(train_step: Callable, params, opt_state, data_cfg: pipeline.DataConfig,
         losses.append(loss)
         step += 1
         if step % loop_cfg.checkpoint_every == 0 or step == loop_cfg.total_steps:
-            manager.save(loop_cfg.checkpoint_dir, step, state)
+            manager.save(loop_cfg.checkpoint_dir, step, state, **placed)
     return state["params"], state["opt"], LoopResult(
         final_step=step, losses=losses, retries=retries,
         restored_from=restored_from)

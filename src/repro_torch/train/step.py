@@ -15,12 +15,24 @@ and PyTorch's deterministic algorithms replace them by sorted,
 ordered ones, so a retried or restarted step gives the same bits. The
 mode is switched on for the step only; the serving paths are untouched.
 
-The serving wrappers :func:`make_prefill_step` / :func:`make_decode_step`
-return their step with the partition specs of
+Every factory returns its step with the partition specs of
 :mod:`repro_torch.parallel.sharding` (over fake-tensor shapes), as the
-reference's do for its dry run. ``make_train_step`` does not take a mesh
-yet: its ``mesh``/``fsdp`` specs and the data-parallel gradient
-reduction are the next slice's.
+reference's do for its dry run.
+
+Over a mesh (a ``DeviceMesh``; SPMD, one process per device, as the
+serving mesh) the training step is each rank's program: the rank gets
+its rows of the batch (over ``pod``/``data``) and holds its blocks of
+the parameters and of the optimizer state under ``param_shardings(mesh,
+fsdp=)``. Each parameter is gathered just before use
+(``parallel.comm.gather_param``): the leaves outside the layer stack
+once a step, each layer's inside the layer's remat region, so under
+``fsdp`` a layer is whole only while it runs and is gathered again for
+its recompute (ZeRO-3). The gathers' backward sums the gradients over
+the data ranks in f32 and in rank order, so a step over ``D`` data ranks
+gives the bits of the unmeshed step with ``microbatch=D`` (where the
+global norm does not clip); ``model`` only stores shards (each rank of
+its group computes the whole layer on the same rows). The AdamW update
+runs on the rank's blocks.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import torch.utils.deterministic
 
 from repro_torch.models import model
 from repro_torch.optim import adamw
-from repro_torch.parallel import sharding
+from repro_torch.parallel import comm, sharding
 from repro_torch.runtime.graphs import leaves, unflatten
 
 #: the cuBLAS workspace setting deterministic mode requires on the card
@@ -72,42 +84,205 @@ def value_and_grad(params, cfg, tokens, labels, *, remat: bool = False):
                            for p, g in zip(ps, grads)]
 
 
-def make_train_step(cfg, *, opt_cfg: adamw.AdamWConfig | None = None,
-                    remat: bool = True, microbatch: int = 1):
-    """The training step. With ``microbatch > 1`` the batch splits into
-    that many equal parts along its rows; their f32 gradients and losses
-    are summed in order, then divided by ``microbatch`` (the reference's
-    ``lax.scan``, as a loop)."""
-    opt_cfg = opt_cfg or adamw.AdamWConfig()
+#: the specs of an unmeshed step: one device, the reference's axes
+ONE_DEVICE = sharding.MeshShape((1, 1), ("data", "model"))
 
+
+def make_train_step(cfg, mesh=None, *,
+                    opt_cfg: adamw.AdamWConfig | None = None,
+                    fsdp: bool = False, remat: bool = True,
+                    microbatch: int = 1):
+    """``(train_step, in_specs, out_specs)``, as the reference's: the
+    specs are ``(param_specs, opt_specs, dict(tokens=, labels=))`` in and
+    ``(param_specs, opt_specs, P())`` out (over a one-device mesh when
+    ``mesh`` is None). The step carries ``mesh`` and ``in_specs`` as
+    attributes (the loop reads them).
+
+    With ``microbatch > 1`` the (rank's) batch splits into that many
+    equal parts along its rows; their f32 gradients and losses are
+    summed in order, then divided by ``microbatch`` (the reference's
+    ``lax.scan``, as a loop). Over a mesh, see the module docstring."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    spec_mesh = mesh if mesh is not None else ONE_DEVICE
+    pspec = sharding.param_shardings(
+        spec_mesh, sharding.abstract(model.init_params, cfg, device="cpu"),
+        fsdp=fsdp)
+    ospec = sharding.opt_state_shardings(pspec, opt_cfg)
+    bspec = dict(tokens=sharding.batch_sharding(spec_mesh),
+                 labels=sharding.batch_sharding(spec_mesh))
+    in_specs = (pspec, ospec, bspec)
+    out_specs = (pspec, ospec, sharding.P())
+    if mesh is None:
+        fn = _plain_step(cfg, opt_cfg, remat, microbatch)
+    else:
+        fn = _mesh_step(cfg, mesh, pspec, opt_cfg, remat, microbatch)
+    fn.mesh, fn.in_specs = mesh, in_specs
+    return fn, in_specs, out_specs
+
+
+def _split(t: torch.Tensor, parts: int) -> torch.Tensor:
+    return t.reshape(parts, t.shape[0] // parts, -1)
+
+
+def _accumulate(vg, params, tokens, labels, microbatch: int):
+    """``(loss, grads)`` of ``vg(params, tokens, labels)`` over the batch:
+    with ``microbatch > 1`` its equal row parts' f32 gradients and losses
+    summed in order, undivided (the reference's ``lax.scan``, as a
+    loop)."""
+    if microbatch == 1:
+        return vg(params, tokens, labels)
+    tk, lb = _split(tokens, microbatch), _split(labels, microbatch)
+    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in leaves(params)]
+    loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(microbatch):
+        l, g = vg(params, tk[i], lb[i])
+        grads = [a + b.float() for a, b in zip(grads, g)]
+        loss = loss + l
+        del g
+    return loss, grads
+
+
+def _train_step(vg, opt_cfg, microbatch: int, n: int, sum_loss=None,
+                **update):
+    """The step: :func:`_accumulate`, the loss summed by ``sum_loss``
+    (over a mesh's data ranks), loss and gradients divided by ``n`` (the
+    microbatches the sum holds), then the AdamW update (``update``: its
+    mesh arguments)."""
     def train_step(params, opt_state, batch):
-        tokens, labels = batch["tokens"], batch["labels"]
         with deterministic():
-            if microbatch > 1:
-                tk = tokens.reshape(microbatch, tokens.shape[0] // microbatch,
-                                    -1)
-                lb = labels.reshape(microbatch, labels.shape[0] // microbatch,
-                                    -1)
-                grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
-                         for p in leaves(params)]
-                loss = torch.zeros((), dtype=torch.float32,
-                                   device=tokens.device)
-                for i in range(microbatch):
-                    l, g = value_and_grad(params, cfg, tk[i], lb[i],
-                                          remat=remat)
-                    grads = [a + b.float() for a, b in zip(grads, g)]
-                    loss = loss + l
-                    del g
-                grads = [g / microbatch for g in grads]
-                loss = loss / microbatch
-            else:
-                loss, grads = value_and_grad(params, cfg, tokens, labels,
-                                             remat=remat)
-            new_params, new_opt = adamw.update_leaves(params, grads,
-                                                      opt_state, opt_cfg)
+            loss, grads = _accumulate(vg, params, batch["tokens"],
+                                      batch["labels"], microbatch)
+            if sum_loss is not None:
+                loss = sum_loss(loss)
+            if n > 1:
+                grads = [g / n for g in grads]
+                loss = loss / n
+            new_params, new_opt = adamw.update_leaves(
+                params, grads, opt_state, opt_cfg, **update)
         return new_params, new_opt, dict(loss=loss)
 
+    return train_step
+
+
+def _plain_step(cfg, opt_cfg, remat, microbatch):
+    return _train_step(
+        lambda p, tk, lb: value_and_grad(p, cfg, tk, lb, remat=remat),
+        opt_cfg, microbatch, microbatch)
+
+
+def layer_slots(params, n_layers: int) -> tuple[list, list]:
+    """``(top, per_layer)``: the :func:`leaves` indices of the leaves
+    outside ``params["layers"]``, and for each layer ``i`` the indices of
+    the leaves ``model.layer_params(params, i)`` slices, in their
+    ``leaves`` order (a stacked layer's are its stacked leaves)."""
+    top, per_layer, start = [], [], 0
+    for key in sorted(params):
+        n = sum(1 for _ in leaves(params[key]))
+        if key != "layers":
+            top.extend(range(start, start + n))
+        elif isinstance(params[key], list):
+            o = start
+            for lp in params[key]:
+                m = sum(1 for _ in leaves(lp))
+                per_layer.append(list(range(o, o + m)))
+                o += m
+        else:
+            per_layer = [list(range(start, start + n))] * n_layers
+        start += n
+    return top, per_layer
+
+
+class _GradSink:
+    """Collects the reduced gradient blocks the parameter gathers' backward
+    hands out (``(leaf, layer)`` keys), straight into one buffer per
+    leaf: a stacked leaf's layers into its slices."""
+
+    def __init__(self, n: int, n_layers: int):
+        self.grads: list = [None] * n
+        self.n_layers = n_layers
+
+    def __call__(self, key, g: torch.Tensor) -> None:
+        j, layer = key
+        if layer is None:
+            self.grads[j] = g
+            return
+        if self.grads[j] is None:
+            self.grads[j] = g.new_zeros((self.n_layers, *g.shape))
+        self.grads[j][layer].copy_(g)
+
+    def result(self, blocks: list, dtype_of) -> list:
+        """The gradients, zeros where a leaf got none."""
+        return [torch.zeros(b.shape, dtype=dtype_of(b), device=b.device)
+                if g is None else g for g, b in zip(self.grads, blocks)]
+
+
+def mesh_params(params, cfg, specs: list, gather):
+    """``(tree, layer_hook)`` for a model call on a rank's blocks:
+    ``params`` holds the blocks under ``specs`` (a list in :func:`leaves`
+    order); ``gather(t, spec, key)`` makes a block whole (``key``:
+    ``(leaf index, layer or None)``). The leaves outside the layers, and
+    a stacked leaf whose layer axis the rules split ('model' re-homed
+    there when a dim it should split is too small, e.g. GQA's kv heads),
+    are gathered once in ``tree``; every other layer leaf by
+    ``layer_hook`` as its layer runs."""
+    top, per_layer = layer_slots(params, cfg.n_layers)
+    stacked = not isinstance(params["layers"], list)
+    whole = set(top)
+    if stacked:
+        whole |= {j for j in per_layer[0] if specs[j][0] is not None}
+    tree = list(leaves(params))
+    for j in sorted(whole):
+        tree[j] = gather(tree[j], specs[j], (j, None))
+
+    def hook(i, lp):
+        return unflatten(lp, [
+            t if j in whole else gather(
+                t, sharding.P(*specs[j][1:]) if stacked else specs[j],
+                (j, i if stacked else None))
+            for t, j in zip(leaves(lp), per_layer[i])])
+
+    return unflatten(params, tree), hook
+
+
+def mesh_value_and_grad(params, cfg, tokens, labels, mc, specs: list, *,
+                        remat: bool = True):
+    """``(loss, grads)`` of the rank's rows on a mesh: ``params`` holds
+    the rank's blocks under ``specs`` (a list in :func:`leaves` order),
+    each gathered before use (:func:`mesh_params`); ``grads`` are the
+    rank's blocks of the gradient summed over the data ranks (f32,
+    undivided), or of its own gradient in the parameter's dtype with one
+    data rank."""
+    blocks = list(leaves(params))
+    ps = [p.detach().requires_grad_(True) for p in blocks]
+    sink = _GradSink(len(ps), cfg.n_layers)
+    tree, hook = mesh_params(
+        unflatten(params, ps), cfg, specs,
+        lambda t, spec, key: comm.gather_param(t, mc, spec, sink, key))
+    loss = model.lm_loss(tree, cfg, tokens, labels, remat=remat,
+                         layer_hook=hook)
+    torch.autograd.grad(loss, ps, allow_unused=True)
+    one = mc.n_data == 1
+    return loss.detach(), sink.result(
+        blocks, lambda b: b.dtype if one else torch.float32)
+
+
+def _mesh_step(cfg, mesh, pspec, opt_cfg, remat, microbatch):
+    if isinstance(mesh, sharding.MeshShape):
+        def specs_only(*args):
+            raise TypeError("a MeshShape gives the specs only; the step "
+                            "runs on a DeviceMesh")
+        specs_only.mesh_comm = None
+        return specs_only
+    mc = comm.MeshComm(mesh)
+    specs = list(sharding.spec_leaves(pspec))
+    train_step = _train_step(
+        lambda p, tk, lb: mesh_value_and_grad(p, cfg, tk, lb, mc, specs,
+                                              remat=remat),
+        opt_cfg, microbatch, microbatch * mc.n_data,
+        mc.sum_over_data if mc.n_data > 1 else None, mesh_comm=mc,
+        specs=specs)
+    train_step.mesh_comm = mc
     return train_step
 
 

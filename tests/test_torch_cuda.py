@@ -774,7 +774,7 @@ def test_train_step_restart_and_retry_on_card(gpu, tmp_path):
         assert float(d.norm()) <= TRAIN_GRAD_NORM_TOL * float(a.norm())
 
     ocfg = adamw.AdamWConfig(lr=3e-3)
-    step = train_step.make_train_step(cfg, opt_cfg=ocfg)
+    step, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg)
     data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
 
     def fresh():
@@ -851,3 +851,57 @@ def test_one_rank_nccl_mesh_matches_unmeshed(gpu, spec):
     assert bodies and all(isinstance(b, graphs.CapturedStep) for b in bodies)
     per_replay = 2 + (2 * cfg.n_layers if spec == "1x1" else 0)
     assert all(b.launches[-1]["wave"] == per_replay for b in bodies)
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+@pytest.mark.parametrize("spec", ["1", "1x1"])
+def test_one_rank_nccl_train_mesh_matches_unmeshed(gpu, spec, fsdp):
+    """``make_train_step(cfg, mesh)`` over a one-rank NCCL mesh, fsdp off
+    and on: two steps of a reduced config end on the unmeshed run's bits
+    (parameters, optimizer state with the int8 error feedback, losses);
+    a one-rank mesh runs no collective."""
+    import torch.distributed as dist
+
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import comm, sharding
+    from repro_torch.runtime.graphs import leaves
+    from repro_torch.train import step as train_step
+
+    cfg = configs.get("yi-6b").reduced()
+    ocfg = adamw.AdamWConfig(lr=1e-3, compress_grads=True)
+    params = model.init_params(cfg, seed=0, device=gpu)
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    batches = [pipeline.batch_for(data, pipeline.PipelineState(i),
+                                  device=gpu) for i in range(2)]
+
+    def run(fn, p, o):
+        losses = []
+        for b in batches:
+            p, o, m = fn(p, o, b)
+            losses.append(m["loss"])
+        return list(leaves(dict(params=p, opt=o))) + losses
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    owned = not dist.is_initialized()
+    try:
+        fn, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg)
+        plain = run(fn, params, adamw.init_state(params, ocfg))
+        mesh = mesh_mod.make_serving_mesh(spec, device=gpu)
+        assert dist.get_backend() == "nccl"
+        fn, ins, _ = train_step.make_train_step(cfg, mesh, opt_cfg=ocfg,
+                                                fsdp=fsdp)
+        comm.reset_launches()
+        meshed = run(fn, sharding.place(params, ins[0], mesh),
+                     sharding.place(adamw.init_state(params, ocfg), ins[1],
+                                    mesh))
+        assert comm.launches["train"] == 0
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+    assert len(plain) == len(meshed)
+    for a, b in zip(plain, meshed):
+        assert a.dtype == b.dtype and torch.equal(bits(a), bits(b))

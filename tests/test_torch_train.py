@@ -237,7 +237,8 @@ def test_microbatch_step_matches_reference(tiny):
     jp, jo, jm = jax.jit(jfn)(to_jax(params),
                               jadamw.init_state(to_jax(params), jocfg),
                               jbatch)
-    step = train_step.make_train_step(cfg, opt_cfg=ocfg, microbatch=2)
+    step, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg,
+                                            microbatch=2)
     p, o, m = step(params, adamw.init_state(params, ocfg), batch)
     assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-6
     for a, b in zip(jax.tree.leaves((jo["mu"], jo["nu"])),
@@ -291,7 +292,7 @@ def _trained_state(arch, compress):
     params = model.init_params(cfg, seed=2, device="cpu")
     ocfg = adamw.AdamWConfig(compress_grads=compress)
     toks = torch.arange(16, dtype=torch.int32).reshape(2, 8) % cfg.vocab
-    step = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=False)
+    step, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=False)
     p, o, _ = step(params, adamw.init_state(params, ocfg),
                    dict(tokens=toks, labels=toks))
     return dict(params=p, opt=o)
@@ -358,7 +359,7 @@ def tiny_run(tiny):
     no remat (as its jitted step)."""
     _, cfg, params, _, data = tiny
     ocfg = adamw.AdamWConfig(lr=3e-3)
-    step = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=False)
+    step, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=False)
     return params, adamw.init_state(params, ocfg), step, data
 
 

@@ -126,7 +126,7 @@ def test_one_train_step(arch):
     ocfg = adamw.AdamWConfig(lr=1e-3)
     opt = adamw.init_state(params, ocfg)
     toks = torch.from_numpy(_batch(cfg.vocab)[0])
-    step = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=False)
+    step, _, _ = train_step.make_train_step(cfg, opt_cfg=ocfg, remat=False)
     new_params, new_opt, m = step(params, opt, dict(tokens=toks,
                                                     labels=toks))
     l0 = float(m["loss"])
