@@ -153,7 +153,19 @@ one JSON line:
    whose predicted peak must lie within DRYRUN_PEAK_TOL of the real
    step's ``max_memory_allocated`` (both printed, and their ratio); and
    yi-6b's four cells on the 16x16 fake mesh (its training cell, and
-   the other three);
+   the other three), both running the partitioned layer program over
+   'model' (``parallel/tensor.py``); the one-rank meshes of
+   ``train_mesh`` run it too, with a group of one;
+3h. ``tp_rank`` (after ``dryrun``) — rank 0's training step of the
+   ``train_mesh`` setup at ``1x2`` and ``1x4``, in a subprocess (this
+   process holds an NCCL group): the mesh over the fake process group of
+   ``launch.mesh.make_dryrun_mesh(spec=)`` (its collectives return at
+   once, so the values are not compared), over real CUDA tensors holding
+   the rank's blocks. For each: counted FLOPs a step
+   (``FlopCounterMode``), which must equal the count the landings imply
+   (``parallel.tensor.step_flops``) exactly; step ms (median of steps
+   2-3, CUDA events: compute only); peak memory; the ``tp`` collectives
+   and their bytes a step; beside the unmeshed step's figures;
 4. cli — ``repro_torch.launch.serve.main`` (reduced config): with
    ``--telemetry`` (it prints the energy table); with the serving layer's
    flags (``--scheduler overlap --kv-pages --prefix-cache --shared-prefix
@@ -2413,8 +2425,8 @@ def moe_calls(moe, calls, batch):
     ``batch`` rows (an eager run's waves, layer by layer)."""
     plain = moe.moe_ffn
 
-    def recording(params, cfg, x):
-        out = plain(params, cfg, x)
+    def recording(params, cfg, x, *tp):
+        out = plain(params, cfg, x, *tp)
         if x.shape[0] == batch:
             calls.append((params, x.clone(), out.clone()))
         return out
@@ -3492,6 +3504,124 @@ def dryrun_phase(card, real: dict, started: dict) -> dict:
     return out
 
 
+#: tp_rank: the 'model' sizes rank 0's split step runs at, on a fake group
+TP_RANK_SPECS = ("1x2", "1x4")
+
+
+def tp_rank_worker(out: str, dev: str = "cuda", reduced: bool = False):
+    """The ``tp_rank`` subprocess: for each of TP_RANK_SPECS, rank 0's
+    training step of the ``train_mesh`` setup over the fake process group
+    of ``make_dryrun_mesh(spec=)`` on real ``dev`` tensors holding the
+    rank's blocks: 3 timed steps, then one under ``FlopCounterMode``;
+    writes the records to ``out`` (JSON). ``reduced`` rehearses it with
+    the reduced yi-6b on the CPU."""
+    import dataclasses
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import comm, sharding, tensor
+    from repro_torch.train import step as train_step
+
+    cfg = configs.get(TRAIN["arch"])
+    if reduced:
+        cfg, seq, rows = cfg.reduced(n_layers=2), 64, 2
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN["n_layers"])
+        seq, rows = TRAIN["seq_len"], TRAIN["global_batch"]
+    data = pipeline.DataConfig(vocab=cfg.vocab, seq_len=seq,
+                               global_batch=rows, seed=0)
+    ocfg = adamw.AdamWConfig(lr=TRAIN["lr"])
+    cuda = dev == "cuda"
+    records = []
+    for spec in TP_RANK_SPECS:
+        with mesh_mod.make_dryrun_mesh(spec=spec) as mesh:
+            fn, ins, _ = train_step.make_train_step(cfg, mesh, opt_cfg=ocfg,
+                                                    remat=True)
+            whole = model.init_params(cfg, seed=0, device=dev)
+            params = sharding.place(whole, ins[0], mesh)
+            del whole
+            opt = adamw.init_state(params, ocfg)
+            batches = [pipeline.batch_for(data, pipeline.PipelineState(i),
+                                          device=dev) for i in range(3)]
+            spans = []
+            timed = device_timer(torch, dev, spans)(fn)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            comm.reset_launches()
+            comm.reset_bytes()
+            p, o = params, opt
+            for b in batches:
+                p, o, _ = timed(p, o, b)
+            if cuda:
+                torch.cuda.synchronize()
+            ms = span_ms(spans)
+            calls = comm.launches["tp"] / len(batches)
+            moved = {k: v / len(batches) for k, v in comm.tp_bytes.items()
+                     if v}
+            del p, o
+            with FlopCounterMode(display=False) as flops:
+                fn(params, opt, batches[0])
+            implied = tensor.step_flops(cfg, fn.tp, rows, seq)
+            lands = sharding.landing_leaves(fn.tp.lands)
+            records.append(dict(
+                spec=spec, model=fn.tp.size, rows=rows, seq_len=seq,
+                flops=flops.get_total_flops(), implied_flops=implied,
+                step_ms=ms, median_ms=statistics.median(ms[1:]),
+                peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                             if cuda else None),
+                tp_collectives_per_step=calls, tp_bytes_per_step=moved,
+                split_leaves=sum(land.split for land in lands),
+                leaves=len(lands)))
+            del params, opt
+            if cuda:
+                torch.cuda.empty_cache()
+    Path(out).write_text(json.dumps(records))
+
+
+def tp_rank_phase(card, unmeshed: dict, dev: str = "cuda",
+                  reduced: bool = False) -> dict:
+    """The ``tp_rank`` phase: :func:`tp_rank_worker` in a subprocess (it
+    makes a fake process group, which this process, holding an NCCL one,
+    cannot), waited for; every spec's counted FLOPs must equal the count
+    its landings imply, with the split program's collectives counted.
+    ``unmeshed``: the ``train_mesh`` record's unmeshed figures and the
+    real step's FLOPs, printed beside. Returns the record."""
+    import os
+
+    t_start = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / "tp_rank.json"
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    code = (f"import chip_smoke; chip_smoke.tp_rank_worker({str(out)!r}, "
+            f"{dev!r}, {reduced!r})")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:] + proc.stderr[-6000:], file=sys.stderr)
+        fail(f"tp_rank: the worker exited {proc.returncode}")
+    ranks = json.loads(out.read_text())
+    rec = dict(phase="tp_rank", card=card, unmeshed=unmeshed, ranks=ranks,
+               seconds=time.perf_counter() - t_start)
+    emit(rec)
+    for r in ranks:
+        if r["flops"] != r["implied_flops"]:
+            fail(f"tp_rank {r['spec']}: counted FLOPs {r['flops']} != the "
+                 f"{r['implied_flops']} the landings imply")
+        if r["tp_collectives_per_step"] <= 0 or not r["split_leaves"]:
+            fail(f"tp_rank {r['spec']}: the split program did not run: {r}")
+    return rec
+
+
 def paper_sim(card) -> dict:
     """The ``paper_sim`` phase: the port's DRAM simulator (a host model in
     numpy) runs every paper table at the reference's default sizes on this
@@ -3651,11 +3781,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         dryruns = dryrun_start()
         records.append(train_mesh_phase(torch, configs, model, card))
-        records.append(dryrun_phase(card, records[-1]["real_step"],
-                                    dryruns))
+        train_rec = records[-1]
+        records.append(dryrun_phase(card, train_rec["real_step"], dryruns))
         records.append(dict(phase="train_mesh_dryrun_seconds",
                             seconds=time.perf_counter() - t0))
         emit(records[-1])
+        torch.cuda.empty_cache()
+        records.append(tp_rank_phase(card, dict(
+            train_rec["unmeshed"], flops=train_rec["real_step"]["flops"])))
         torch.cuda.empty_cache()
         records.append(q8_reduced_check(torch, np, configs, model,
                                         sectored_decode, quantized_kv))

@@ -18,22 +18,29 @@ and the roofline terms on H100 datasheet figures (``launch/roofline.py``).
 
 The rank programs: ``train``, ``make_train_step(cfg, mesh, fsdp=,
 remat=True)`` on the rank's rows and blocks, the port's training mesh
-as it runs. The serving cells run the port's serving functions
-(``model.prefill``/``forward``, ``model.decode_step_``,
-``sectored_decode_step_``) unchanged, on the rank's rows, with the
-parameters stored as the training step stores them and each layer's
-gathered as the function reads it (:class:`_GatheredList`). That is a
-program the port's serving mesh does not run: ``serve.MeshBackend``
-keeps the parameters whole on every rank (which the larger archs could
-not hold). ``prefill``: a frontend stub arch takes precomputed
-embeddings. ``decode``: one token against the rank's block of the KV
-cache, each layer's sequence over 'model' gathered before its
-attention. Variant ``sectored``: the sectored step's plain dispatch
-flavor on a cache whose pages are split over 'model' (over every axis
-for ``long_500k``), only the selected pages gathered
-(``parallel.comm.PageShard``, as ``MeshBackend`` runs it). The 'model'
-axis stores shards and does not split the compute, so a rank's FLOPs
-are the step's divided by the data axes only.
+as it runs: the partitioned layer program over 'model'
+(``parallel.tensor``), each product split where its leaf's spec splits
+it, so a rank's FLOPs are its part of the step's. The serving cells run
+the port's serving functions (``model.prefill``/``forward``,
+``model.decode_step_``) on the rank's rows with the same partitioned
+program, the parameters stored as the training step stores them and
+each layer's leaves gathered as the function reads them
+(``train.step.serving_params``) over the data axes and, where 'model'
+does not split a leaf's compute, over 'model'. That is a program the
+port's serving mesh does not run: ``serve.MeshBackend`` keeps the
+parameters whole on every rank (as the reference's does), which the
+larger archs could not hold. ``prefill``: a frontend stub arch takes
+precomputed embeddings. ``decode``: one token against the rank's block
+of the KV cache, each layer's sequence over 'model' gathered before its
+attention (which then reads the kv heads of the rank's query heads) and
+the new row written back into the rank's block
+(``train.step.gathered_state``, as ``make_decode_step`` runs it).
+Variant ``sectored``: the sectored step's plain dispatch flavor on a
+cache whose pages are split over 'model' (over every axis for
+``long_500k``), only the selected pages gathered
+(``parallel.comm.PageShard``, as ``MeshBackend`` runs it); it keeps
+the gathered form: every layer's parameters whole and its compute
+unsplit (``runtime/sectored_decode.py`` has no partitioned program).
 
 The layer loop is Python, so every layer is traced and counted (the
 reference corrects XLA's once-counted scan bodies with probe
@@ -95,7 +102,7 @@ from repro_torch import configs
 from repro_torch.configs.base import fake
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import roofline
-from repro_torch.models import attention, griffin, model, rwkv
+from repro_torch.models import griffin, model, rwkv
 from repro_torch.optim import adamw
 from repro_torch.parallel import comm, sharding
 from repro_torch.runtime import sectored_decode
@@ -203,91 +210,12 @@ def _rows(n: int, mesh, long_ctx: bool) -> int:
     return n // comm.MeshComm(mesh).data_shard()[1]
 
 
-def _gathered(params, cfg, mc, specs):
-    return step_mod.mesh_params(params, cfg, list(sharding.spec_leaves(
-        specs)), lambda t, spec, key: mc.gather(t, spec))
-
-
-class _GatheredList(list):
-    """A list whose entry ``i`` is ``get(i)``, made when read.
-    ``model.layer_params`` and ``DecodeState.layer_kv``/``layer_rec`` read
-    a list entry by entry, so a serving function handed one gathers each
-    layer's parameters or state as the layer runs and drops it after."""
-
-    def __init__(self, n: int, get):
-        super().__init__([None] * n)
-        self._get = get
-
-    def __getitem__(self, i):
-        return self._get(i)
-
-    def __iter__(self):
-        return (self._get(i) for i in range(len(self)))
-
-
-def _serving_params(params, cfg, mc, specs) -> dict:
-    """The rank's parameter blocks as a serving function's ``params``:
-    the leaves outside the layers gathered, each layer's when it is
-    read."""
-    tree, hook = _gathered(params, cfg, mc, specs)
-    return {**tree, "layers": _GatheredList(
-        cfg.n_layers, lambda i: hook(i, model.layer_params(tree, i)))}
-
-
-def _map_specs(fn, tree):
-    """A spec tree (specs in dataclasses and dicts) with every spec
-    ``s`` replaced by ``fn(s)``."""
-    if isinstance(tree, sharding.PartitionSpec):
-        return fn(tree)
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{
-            f.name: _map_specs(fn, getattr(tree, f.name))
-            for f in dataclasses.fields(tree)})
-    if isinstance(tree, dict):
-        return {k: _map_specs(fn, v) for k, v in tree.items()}
-    return tree
-
-
 def _owner(spec, shape, mesh, mc, dim: int) -> tuple[int, int]:
     """(block index, block count) of this rank along ``dim`` under
     ``spec``."""
     sl = sharding.local_slice(spec, shape, mesh, mc.coords)[dim]
     block = sl.stop - sl.start
     return sl.start // block, shape[dim] // block
-
-
-def _gathered_state(state, state_specs, n_layers: int, mc):
-    """The rank's block of a decode state as ``decode_step_``'s
-    ``state``: each layer's K/V (over its split sequence) or recurrent
-    state gathered when the layer reads it. The step writes its new row
-    into the gathered copy; the rank's own write of that row into its
-    block is left out of the count (one row)."""
-    stacked = not isinstance(state.kv, list) and not isinstance(
-        state.rec, list)
-
-    def layer_specs(tree, i):
-        # a stacked leaf's spec without its layer entry; the batch dim
-        # (now dim 0) left as it is: the rank keeps its rows
-        if stacked:
-            return _map_specs(lambda s: sharding.P(None, *s[2:]), tree)
-        return _map_specs(lambda s: sharding.P(None, *s[1:]), tree[i])
-
-    def kv(i):
-        st, specs = state.layer_kv(i), layer_specs(state_specs.kv, i)
-        return attention.KVCache(k=mc.gather(st.k, specs.k),
-                                 v=mc.gather(st.v, specs.v),
-                                 length=st.length)
-
-    def rec(i):
-        st, specs = state.layer_rec(i), layer_specs(state_specs.rec, i)
-        if isinstance(st, torch.Tensor):
-            return mc.gather(st, specs)
-        return {key: mc.gather(t, specs[key]) for key, t in st.items()}
-
-    return model.DecodeState(
-        kv=None if state.kv is None else _GatheredList(n_layers, kv),
-        rec=None if state.rec is None else _GatheredList(n_layers, rec),
-        position=state.position)
 
 
 def _train_program(cfg, sc, mesh, fsdp: bool, dev):
@@ -314,24 +242,24 @@ def _prefill_program(cfg, sc, mesh, dev, state_len: int):
     specs = sharding.param_shardings(
         mesh, sharding.abstract(model.init_params, cfg, device="cpu"))
     rows = _rows(sc.global_batch, mesh, False)
-    mc = comm.MeshComm(mesh)
     hybrid = not (cfg.uniform_layers or cfg.attn_free)
+    serving = step_mod.serving_params(cfg, mesh, specs)
 
     def fn(params, inputs):
-        tree = _serving_params(params, cfg, mc, specs)
+        tree, tp = serving(params)
         if cfg.frontend != "none":
-            hidden = model.forward(tree, cfg, embeds=inputs)
-            return model.logits_fn(tree, cfg, hidden[:, -1:, :])
+            hidden = model.forward(tree, cfg, embeds=inputs, tp=tp)
+            return model.logits_fn(tree, cfg, hidden[:, -1:, :], tp)
         if hybrid:
             # a hybrid's local caches hold at most pad(window) rows, which
             # a long prompt overflows (model.prefill refuses it): the cell
             # is the reference's prefill of a non-uniform stack, the
             # forward pass, the last position's logits and a zero state
-            hidden = model.forward(tree, cfg, inputs)
-            return (model.logits_fn(tree, cfg, hidden[:, -1:, :]),
+            hidden = model.forward(tree, cfg, inputs, tp=tp)
+            return (model.logits_fn(tree, cfg, hidden[:, -1:, :], tp),
                     model.init_decode_state(cfg, rows, state_len,
                                             device=inputs.device))
-        return model.prefill(tree, cfg, inputs)
+        return model.prefill(tree, cfg, inputs, tp=tp)
 
     def build():
         params = sharding.place(model.init_params(cfg, device=dev), specs,
@@ -373,15 +301,20 @@ def _decode_program(cfg, sc, mesh, variant: str, dev):
                                   sc.global_batch, sc.seq_len, device="cpu")
         sspec = sharding.decode_state_shardings(mesh, shape, long_ctx)
 
+    # the sectored step keeps the gathered form: whole parameters, unsplit
+    serving = step_mod.serving_params(cfg, mesh, specs, split=not sectored)
+
     def fn(params, state, token):
-        tree = _serving_params(params, cfg, mc, specs)
+        tree, tp = serving(params)
         if sectored:
             return sectored_decode.sectored_decode_step_(
                 tree, cfg, state, token, k_pages, kernel="dispatch",
                 shard=shard)
-        return model.decode_step_(
-            tree, cfg, _gathered_state(state, sspec, cfg.n_layers, mc),
-            token)
+        view, close = step_mod.gathered_state(state, sspec, cfg.n_layers,
+                                              mesh, mc)
+        logits = model.decode_step_(tree, cfg, view, token, tp=tp)
+        close()
+        return logits
 
     def build():
         params = sharding.place(model.init_params(cfg, device=dev), specs,

@@ -9,6 +9,12 @@ all in f32. The reference runs the prompt's recurrence as a log-depth
 ``associative_scan``; here it is a loop over the sequence, which forms
 the products in another order, so the two agree within a tolerance, not
 bitwise. Decode is one fused update (:func:`rglru_step`). Plain torch.
+
+With ``tp`` (a ``parallel.tensor.TP``; the default ``tensor.UNSPLIT``
+runs every product whole) the parameters are the rank's blocks: where ``w_x``, ``w_gate_r`` and ``w_gate_i`` split their
+columns, the gates and the recurrence run on the rank's channels and
+``w_out``'s split rows contract them, summed over 'model'; any other
+landing makes the gates whole first. The returned state is whole.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel.tensor import UNSPLIT
 
 A_MAX_LOG = -8.0  # log of minimum decay => a in (exp(-8), 1)
 
@@ -35,20 +42,28 @@ def init_rec(gen, cfg, dtype, device, lead=()) -> dict:
     )
 
 
-def _decay(params: dict, r: torch.Tensor) -> torch.Tensor:
+def _decay(log_a: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Per-step decay a_t in (0, 1): a = exp(softplus(log_a) * -8 * r)."""
-    c = F.softplus(params["log_a"])
+    c = F.softplus(log_a)
     return torch.exp(A_MAX_LOG * c * r)
 
 
-def _gates(params: dict, xf: torch.Tensor):
-    """(a, b) of the recurrence h = a h + b for f32 inputs ``xf``."""
-    r = torch.sigmoid(torch.matmul(xf, params["w_gate_r"].float()))
-    i = torch.sigmoid(torch.matmul(xf, params["w_gate_i"].float()))
-    xi = torch.matmul(xf, params["w_x"].float())
-    a = _decay(params, r)
+def _gates(params: dict, xf: torch.Tensor, tp=UNSPLIT):
+    """``(a, b, local)`` of the recurrence h = a h + b for f32 inputs
+    ``xf``: ``local`` where they are the rank's channels (else whole)."""
+    names = ("w_gate_r", "w_gate_i", "w_x")
+    lands = [tp.land(n) for n in names]
+    xc = tp.copy_for(xf, *lands)
+    outs = [tp.linear(xf, params[n].float(), land, copied=xc)
+            for n, land in zip(names, lands)]
+    dims = {d for _, d in outs}
+    local = len(dims) == 1 and None not in dims
+    r, i, xi = (y if local else tp.full(y, d) for y, d in outs)
+    r, i = torch.sigmoid(r), torch.sigmoid(i)
+    log_a = params["log_a"]
+    a = _decay(tp.scatter(log_a, 0) if local else log_a, r)
     b = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-9)) * (i * xi)
-    return a, b
+    return a, b, local
 
 
 def scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
@@ -62,20 +77,28 @@ def scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     return torch.stack(hs, dim=1), h
 
 
-def rglru(params: dict, x: torch.Tensor, h0: torch.Tensor):
+def _split_out(params: dict, hh: torch.Tensor, tp, local: bool):
+    """``w_out``'s product of the states ``hh``, whole on every rank."""
+    y, yd = tp.linear(hh, params["w_out"].float(), tp.land("w_out"),
+                      x_dim=0 if local else None)
+    return tp.full(y, yd)
+
+
+def rglru(params: dict, x: torch.Tensor, h0: torch.Tensor, tp=UNSPLIT):
     """x: (B, S, D); h0: (B, D) f32. Returns (y (B, S, D), h_last)."""
-    a, b = _gates(params, x.float())
-    hh, h = scan(a, b, h0)
-    y = torch.matmul(hh, params["w_out"].float())
-    return y.to(x.dtype), h
+    a, b, local = _gates(params, x.float(), tp)
+    hh, h = scan(a, b, tp.scatter(h0, -1) if local else h0)
+    y = _split_out(params, hh, tp, local)
+    return y.to(x.dtype), tp.full(h, h.ndim - 1 if local else None)
 
 
-def rglru_step(params: dict, x: torch.Tensor, h: torch.Tensor):
+def rglru_step(params: dict, x: torch.Tensor, h: torch.Tensor, tp=UNSPLIT):
     """Decode step: x (B, 1, D), h (B, D) -> (y (B, 1, D), h')."""
-    a, b = _gates(params, x[:, 0].float())
-    h_new = a * h + b
-    y = torch.matmul(h_new, params["w_out"].float())
-    return y[:, None, :].to(x.dtype), h_new
+    a, b, local = _gates(params, x[:, 0].float(), tp)
+    h_new = a * (tp.scatter(h, -1) if local else h) + b
+    y = _split_out(params, h_new, tp, local)
+    return (y[:, None, :].to(x.dtype),
+            tp.full(h_new, h_new.ndim - 1 if local else None))
 
 
 def init_rec_state(cfg, batch: int, device=None) -> torch.Tensor:

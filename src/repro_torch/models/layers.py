@@ -2,7 +2,12 @@
 ``models/layers.py``).
 
 Parameters are plain dicts of tensors; every function takes
-``(params, inputs)`` and returns outputs. Numerics follow the reference:
+``(params, inputs)`` and returns outputs. Where a function takes ``tp``
+(a ``parallel.tensor.TP``, the rank's context on a mesh whose 'model'
+axis splits the products), its parameters are the rank's blocks and it
+runs the partitioned program; the default, ``tensor.UNSPLIT``, is one
+rank with every leaf whole, where each crossing is the identity and each
+product one unsplit product. Numerics follow the reference:
 bf16 projections stay bf16 products (``torch.matmul`` accumulates in f32
 and rounds once, like XLA's bf16 dot), and every ``astype`` of the
 reference is a cast at the same place here.
@@ -12,6 +17,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import sharding
+from repro_torch.parallel.tensor import UNSPLIT
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
@@ -83,12 +91,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # --- MLPs ---------------------------------------------------------------------
 
-def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP: silu(x @ w_gate) * (x @ w_up) @ w_down."""
-    g = torch.matmul(x, params["w_gate"])
-    u = torch.matmul(x, params["w_up"])
+def swiglu(params: dict, x: torch.Tensor, tp=UNSPLIT) -> torch.Tensor:
+    """Gated MLP: silu(x @ w_gate) * (x @ w_up) @ w_down. Split columns
+    of ``w_gate``/``w_up`` and rows of ``w_down`` keep the hidden layer
+    local, one sum over 'model' at the end; any other landing runs its
+    own products (:meth:`TP.linear`)."""
+    lg, lu = tp.land("w_gate"), tp.land("w_up")
+    xc = tp.copy_for(x, lg, lu)
+    g, gd = tp.linear(x, params["w_gate"], lg, copied=xc)
+    u, ud = tp.linear(x, params["w_up"], lu, copied=xc)
+    if gd != ud:
+        g, u, gd = tp.full(g, gd), tp.full(u, ud), None
     h = F.silu(g.float()).to(x.dtype) * u
-    return torch.matmul(h, params["w_down"])
+    y, yd = tp.linear(h, params["w_down"], tp.land("w_down"),
+                      x_dim=None if gd is None else 0)
+    return tp.full(y, yd)
 
 
 def _normal(gen, shape, dtype, device, scale: float) -> torch.Tensor:
@@ -106,13 +123,37 @@ def init_swiglu(gen, d: int, f: int, dtype, device, lead=()) -> dict:
     )
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens.long()]
+def embed(params: dict, tokens: torch.Tensor, tp=UNSPLIT) -> torch.Tensor:
+    """The embedding rows of ``tokens``. With the vocab split, the rank
+    looks up the ids in its range (zero rows for the rest) and the rows
+    are summed over 'model': only zeros are added, so it is exact."""
+    table = params["embedding"]
+    land = tp.land("embedding")
+    ids = tokens.long()
+    if land.dim == 0:
+        v0, v1 = tp.block(table.shape[0] * tp.size)
+        mine = (ids >= v0) & (ids < v1)
+        rows = table[torch.where(mine, ids - v0, 0)]
+        return tp.sum(torch.where(mine[..., None], rows, 0.0))
+    return tp.full(table[ids], None if land.dim is None else ids.ndim)
 
 
-def unembed(params: dict, x: torch.Tensor, tied: bool) -> torch.Tensor:
+def unembed(params: dict, x: torch.Tensor, tied: bool, tp=UNSPLIT):
+    """Logits ``x @ w.T``, whole (gathered over 'model' where the vocab
+    is split, which is exact)."""
+    return tp.full(*split_logits(params, x, tied, tp))
+
+
+def split_logits(params: dict, x: torch.Tensor, tied: bool, tp=UNSPLIT):
+    """Logits ``x @ w.T`` as ``(logits, dim)``: ``dim`` the vocab dim
+    where the logits are the rank's block of the vocab, None where they
+    are whole."""
     w = params["embedding"] if tied else params["lm_head"]
-    return torch.matmul(x, w.t())
+    land = tp.land("embedding" if tied else "lm_head")
+    if land.dim is not None:  # w.T's dims: (D, vocab)
+        land = sharding.Landing(1 - land.dim, "output" if land.dim == 0
+                                else "contraction")
+    return tp.linear(x, w.t(), land)
 
 
 def init_embed(gen, vocab: int, d: int, dtype, device, tied: bool) -> dict:

@@ -22,6 +22,15 @@ and returns the recurrent families' states empty, so its decode after a
 prefill ignores the prompt; the port keeps the states its ``forward``
 computes, which equal the reference's token-by-token ``decode_step``
 chain over the prompt.)
+
+``forward``, ``lm_loss``, ``prefill`` and ``decode_step_`` take a
+``tp`` (a ``parallel.tensor.TP``: the rank's place in its 'model' group
+and where 'model' lands on each parameter): the parameters are the
+rank's blocks of the leaves that 'model' splits on an output or
+contraction dim (whole elsewhere) and each layer runs its partitioned
+program (``models/layers.py``, ``attention.py``, ``moe.py``,
+``rwkv.py``, ``griffin.py``). The default, ``tensor.UNSPLIT`` (one
+rank, every leaf whole), runs each product as one unsplit product.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from torch.utils import checkpoint
 
 from repro_torch.kernels import backend
 from repro_torch.models import attention, griffin, layers, moe, rwkv
+from repro_torch.parallel.tensor import UNSPLIT
 from repro_torch.runtime.graphs import clone_tree, copy_tree_, leaves, map_tree
 
 
@@ -102,32 +112,37 @@ def layer_params(params: dict, i: int) -> dict:
     return map_tree(lambda t: t[i], params["layers"])
 
 
-def logits_fn(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
-    return layers.unembed(params, hidden, cfg.tie_embeddings)
+def logits_fn(params: dict, cfg, hidden: torch.Tensor,
+              tp=UNSPLIT) -> torch.Tensor:
+    """The logits of ``hidden``, whole (gathered over 'model' where the
+    vocab is split, which is exact)."""
+    return layers.unembed(params, hidden, cfg.tie_embeddings, tp)
 
 
-def ffn(lp: dict, cfg, h: torch.Tensor) -> torch.Tensor:
+def ffn(lp: dict, cfg, h: torch.Tensor, tp=UNSPLIT) -> torch.Tensor:
     """An attention layer's FFN: the MoE layer where ``cfg.moe``, else
     SwiGLU."""
     if cfg.moe:
-        return moe.moe_ffn(lp["moe"], cfg, h)
-    return layers.swiglu(lp["mlp"], h)
+        return moe.moe_ffn(lp["moe"], cfg, h, tp.at("moe"))
+    return layers.swiglu(lp["mlp"], h, tp.at("mlp"))
 
 
 def _attn_block(lp: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, tp=UNSPLIT) -> torch.Tensor:
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + attention.attend(lp["attn"], cfg, h, positions, window=window)
+    x = x + attention.attend(lp["attn"], cfg, h, positions, window=window,
+                             tp=tp.at("attn"))
     h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + ffn(lp, cfg, h)
+    return x + ffn(lp, cfg, h, tp)
 
 
-def _rec_block(lp: dict, cfg, x: torch.Tensor, h0: torch.Tensor):
+def _rec_block(lp: dict, cfg, x: torch.Tensor, h0: torch.Tensor,
+               tp=UNSPLIT):
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    y, h_last = griffin.rglru(lp["rec"], h, h0)
+    y, h_last = griffin.rglru(lp["rec"], h, h0, tp.at("rec"))
     x = x + y
     h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + layers.swiglu(lp["mlp"], h), h_last
+    return x + layers.swiglu(lp["mlp"], h, tp.at("mlp")), h_last
 
 
 def _window(cfg) -> int:
@@ -141,7 +156,7 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def forward(params: dict, cfg, tokens=None, *, embeds=None,
             positions=None, remat: bool = False,
-            layer_hook=None) -> torch.Tensor:
+            layer_hook=None, tp=UNSPLIT) -> torch.Tensor:
     """Trunk: tokens (B, S) or embeds (B, S, D) -> final hidden states
     (B, S, D). ``remat`` recomputes each layer's activations in the
     backward pass instead of keeping them (the reference's
@@ -152,18 +167,22 @@ def forward(params: dict, cfg, tokens=None, *, embeds=None,
     layer uses them (a mesh step gathers the rank's blocks there); it runs
     inside the remat region, so a gathered layer is freed after the
     forward and gathered again for the recompute. ``None`` is the
-    identity."""
-    x = layers.embed(params, tokens) if embeds is None else embeds
+    identity. ``tp``: see the module docstring."""
+    if embeds is None:
+        x = layers.embed(params, tokens, tp)
+    else:
+        x = embeds
     B, S = x.shape[:2]
     if positions is None:
         positions = _positions(B, S, x.device)
     x = _layers_over_prompt(params, cfg, x, positions, remat=remat,
-                            layer_hook=layer_hook)
+                            layer_hook=layer_hook, tp=tp)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
-            remat: bool = False, layer_hook=None) -> torch.Tensor:
+            remat: bool = False, layer_hook=None,
+            tp=UNSPLIT) -> torch.Tensor:
     """Causal LM loss: the mean over all positions of
     ``logsumexp(logits_f32) - gold``.
 
@@ -171,35 +190,75 @@ def lm_loss(params: dict, cfg, tokens: torch.Tensor, labels: torch.Tensor,
     (``iota == label``), so that a vocab-sharded logits tensor reduces
     shard-locally; every other term of that sum is 0, so it equals a
     ``torch.gather`` of the label's logit exactly, which spares a
-    (B, S, vocab) f32 tensor here."""
-    hidden = forward(params, cfg, tokens, remat=remat, layer_hook=layer_hook)
-    logits = logits_fn(params, cfg, hidden).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    (B, S, vocab) f32 tensor here. With the vocab split, each rank
+    holds its block of the logits: the log-sum-exp takes the max and the
+    sum of ``exp`` over 'model' (:class:`_SplitLogSumExp`), and the gold
+    logit is taken on the rank whose block holds the label and summed
+    over 'model' (zeros elsewhere, so exactly)."""
+    hidden = forward(params, cfg, tokens, remat=remat, layer_hook=layer_hook,
+                     tp=tp)
+    logits, vd = layers.split_logits(params, hidden, cfg.tie_embeddings, tp)
+    logits = logits.float()
+    if vd is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(logz - gold)
+    logz = _SplitLogSumExp.apply(logits, tp)
+    v0, v1 = tp.block(logits.shape[-1] * tp.size)
+    ids = labels.long()
+    mine = (ids >= v0) & (ids < v1)
+    gold = torch.gather(logits, -1, torch.where(mine, ids - v0,
+                                                0)[..., None])[..., 0]
+    gold = tp.sum(torch.where(mine, gold, 0.0))
     return torch.mean(logz - gold)
+
+
+class _SplitLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over the last dim of logits split over 'model' (the
+    rank's block ``l``): the max over every rank (its infinities taken
+    as 0, as ``torch.logsumexp`` takes them), each rank's f32 sum of
+    ``exp(l - max)`` summed over 'model', ``log`` of it plus the max.
+    The backward is ``torch.logsumexp``'s, ``g * exp(l - result)``, on
+    the rank's block."""
+
+    @staticmethod
+    def forward(ctx, logits, tp):
+        mx = tp.max(torch.amax(logits, dim=-1, keepdim=True))
+        mx.masked_fill_(mx.abs() == float("inf"), 0)
+        s = tp.sum(torch.sum(torch.exp(logits - mx), dim=-1))
+        out = torch.log(s) + mx[..., 0]
+        ctx.save_for_backward(logits, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, out = ctx.saved_tensors
+        return g[..., None] * torch.exp(logits - out[..., None]), None
 
 
 def _layer_over_prompt(lp: dict, cfg, kind: str, x: torch.Tensor,
                        positions: torch.Tensor, i: int = 0,
-                       layer_hook=None) -> torch.Tensor:
+                       layer_hook=None, tp=UNSPLIT) -> torch.Tensor:
     """One layer of the reference's ``forward``, a recurrent one from a
     zero state."""
     if layer_hook is not None:
         lp = layer_hook(i, lp)
+    tp = tp.layer(i)
     B = x.shape[0]
     if kind == "attn":
-        return _attn_block(lp, cfg, x, positions, window=_window(cfg))
+        return _attn_block(lp, cfg, x, positions, window=_window(cfg), tp=tp)
     if kind == "rec":
         return _rec_block(lp, cfg, x,
-                          griffin.init_rec_state(cfg, B, x.device))[0]
+                          griffin.init_rec_state(cfg, B, x.device), tp)[0]
     return rwkv.rwkv_block(lp, cfg, x,
-                           rwkv.init_state(cfg, B, x.device, x.dtype))[0]
+                           rwkv.init_state(cfg, B, x.device, x.dtype), tp,
+                           keep_state=False)[0]
 
 
 def _layers_over_prompt(params: dict, cfg, x: torch.Tensor,
                         positions: torch.Tensor, state=None,
                         remat: bool = False,
-                        layer_hook=None) -> torch.Tensor:
+                        layer_hook=None, tp=UNSPLIT) -> torch.Tensor:
     """The layer stack over a whole prompt, each recurrent layer from a
     zero state (the reference's ``forward``). Without ``state``, ``remat``
     runs each layer under ``torch.utils.checkpoint`` (when autograd
@@ -207,7 +266,8 @@ def _layers_over_prompt(params: dict, cfg, x: torch.Tensor,
     prompt), every layer's decode state is written into it: each
     attention layer's K/V re-projected into rows ``[:S]``, each RWKV
     block's ``(S, last_t, last_c)`` and each RG-LRU's last hidden
-    state. ``layer_hook`` (without ``state``): see :func:`forward`."""
+    state. ``layer_hook`` (without ``state``) and ``tp``: see
+    :func:`forward`."""
     B, S = x.shape[:2]
     if state is None:
         remat = remat and torch.is_grad_enabled()
@@ -215,34 +275,38 @@ def _layers_over_prompt(params: dict, cfg, x: torch.Tensor,
             lp = layer_params(params, i)
             if remat:
                 x = checkpoint.checkpoint(_layer_over_prompt, lp, cfg, kind,
-                                          x, positions, i, layer_hook,
+                                          x, positions, i, layer_hook, tp,
                                           use_reentrant=False)
             else:
                 x = _layer_over_prompt(lp, cfg, kind, x, positions, i,
-                                       layer_hook)
+                                       layer_hook, tp)
         return x
     for i, kind in enumerate(cfg.layer_kinds):
         lp = layer_params(params, i)
+        ltp = tp.layer(i)
         if kind == "attn":
             cache = state.layer_kv(i)
             h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-            _, k, v = attention.qkv(lp["attn"], cfg, h, positions)
+            _, k, v = attention.qkv(lp["attn"], cfg, h, positions,
+                                    ltp.at("attn"))
             cache.k[:, :S] = k.to(cache.k.dtype)
             cache.v[:, :S] = v.to(cache.v.dtype)
-            x = _attn_block(lp, cfg, x, positions, window=_window(cfg))
+            x = _attn_block(lp, cfg, x, positions, window=_window(cfg),
+                            tp=ltp)
         elif kind == "rec":
             x, h_last = _rec_block(lp, cfg, x,
-                                   griffin.init_rec_state(cfg, B, x.device))
+                                   griffin.init_rec_state(cfg, B, x.device),
+                                   ltp)
             state.layer_rec(i).copy_(h_last)
         else:
             x, new = rwkv.rwkv_block(
-                lp, cfg, x, rwkv.init_state(cfg, B, x.device, x.dtype))
+                lp, cfg, x, rwkv.init_state(cfg, B, x.device, x.dtype), ltp)
             copy_tree_(state.layer_rec(i), new)
     return x
 
 
 def prefill(params: dict, cfg, tokens: torch.Tensor,
-            dtype=torch.bfloat16):
+            dtype=torch.bfloat16, tp=UNSPLIT):
     """Run the prompt: tokens (B, S) int -> (last-position logits
     (B, vocab), DecodeState).
 
@@ -262,14 +326,14 @@ def prefill(params: dict, cfg, tokens: torch.Tensor,
             raise ValueError(
                 f"{cfg.name}: a prompt of {S} tokens does not fit its "
                 f"{cache.k.shape[-3]}-row local attention cache")
-    x = layers.embed(params, tokens)
+    x = layers.embed(params, tokens, tp)
     x = _layers_over_prompt(params, cfg, x, _positions(B, S, tokens.device),
-                            state)
+                            state, tp=tp)
     for cache in state.caches():
         cache.length.fill_(S)
     state.position.fill_(S)
     hidden = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, cfg, hidden)[:, 0, :], state
+    return logits_fn(params, cfg, hidden, tp)[:, 0, :], state
 
 
 @dataclasses.dataclass
@@ -421,43 +485,49 @@ def init_decode_state(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
 
 
 def decode_step_(params: dict, cfg, state: DecodeState,
-                 token: torch.Tensor) -> torch.Tensor:
+                 token: torch.Tensor, tp=UNSPLIT) -> torch.Tensor:
     """One-token decode in place: token (B, 1) int -> logits (B, vocab).
 
     The new K/V rows, lengths, recurrent states and position are written
     into ``state``; no buffer of it moves and nothing syncs with the
-    host, so a CUDA graph can capture the step.
+    host, so a CUDA graph can capture the step. ``tp``: see the module
+    docstring (the state is whole over 'model' and stays so; a mesh's
+    decode step gathers a split one, ``train.step.gathered_state``).
     """
-    x = layers.embed(params, token)
+    x = layers.embed(params, token, tp)
     for i, kind in enumerate(cfg.layer_kinds):
         lp = layer_params(params, i)
+        ltp = tp.layer(i)
         if kind == "attn":
             cache = state.layer_kv(i)
             h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
             att, cache_new = attention.decode_attend(
-                lp["attn"], cfg, h, cache, window=_window(cfg))
+                lp["attn"], cfg, h, cache, window=_window(cfg),
+                tp=ltp.at("attn"))
             cache.length.copy_(cache_new.length)
             x = x + att
             h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + ffn(lp, cfg, h)
+            x = x + ffn(lp, cfg, h, ltp)
         elif kind == "rec":
             h_prev = state.layer_rec(i)
             h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-            y, h_new = griffin.rglru_step(lp["rec"], h, h_prev)
+            y, h_new = griffin.rglru_step(lp["rec"], h, h_prev,
+                                          ltp.at("rec"))
             h_prev.copy_(h_new)
             x = x + y
             h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + layers.swiglu(lp["mlp"], h)
+            x = x + layers.swiglu(lp["mlp"], h, ltp.at("mlp"))
         else:
             st = state.layer_rec(i)
-            x, new = rwkv.rwkv_block(lp, cfg, x, st)
+            x, new = rwkv.rwkv_block(lp, cfg, x, st, ltp)
             copy_tree_(st, new)
     hidden = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     state.position.add_(1)
-    return logits_fn(params, cfg, hidden)[:, 0, :]
+    return logits_fn(params, cfg, hidden, tp)[:, 0, :]
 
 
-def decode_step(params: dict, cfg, state: DecodeState, token: torch.Tensor):
+def decode_step(params: dict, cfg, state: DecodeState, token: torch.Tensor,
+                tp=UNSPLIT):
     """token (B, 1) int -> (logits (B, vocab), new state):
     :func:`decode_step_` on ``state.fork()``. The K/V rows are appended
     in place, so ``state``'s caches take the new row; its lengths,
@@ -465,4 +535,4 @@ def decode_step(params: dict, cfg, state: DecodeState, token: torch.Tensor):
     shares its K/V buffers.
     """
     new_state = state.fork()
-    return decode_step_(params, cfg, new_state, token), new_state
+    return decode_step_(params, cfg, new_state, token, tp), new_state

@@ -23,6 +23,15 @@ Port notes:
   ``(T, k, D)`` and added into a bf16 zero row in that order.
 * ``torch.topk`` on the card does not promise the lower index on an
   exact tie in the router logits, as ``jax.lax.top_k`` does.
+
+With ``tp`` (a ``parallel.tensor.TP``; the default ``tensor.UNSPLIT``
+runs every product whole) and the experts split over 'model', the rank
+computes its block of the router's columns and the logits are
+gathered whole (exact), so every rank routes, drops and dispatches the
+same; ``capacity`` stays on the global token count. The rank runs its
+``E / m`` experts on their rows of the grouped buffer, the expert
+outputs are gathered over 'model' and combined as above: every step
+that crosses ranks moves data only.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel.tensor import UNSPLIT
 
 CAPACITY_FACTOR = 1.25
 
@@ -62,10 +72,12 @@ def capacity(n_tokens: int, cfg) -> int:
     return int(n_tokens * e.top_k * CAPACITY_FACTOR / e.n_experts) + 1
 
 
-def route(params: dict, cfg, xt: torch.Tensor):
-    """Router of ``xt`` (T, D): f32 logits, top-k, softmax over the k
-    gates. Returns ``(gate (T, k) f32, idx (T, k) int64)``."""
-    logits = torch.matmul(xt.float(), params["router"])
+def route(params: dict, cfg, xt: torch.Tensor, tp=UNSPLIT):
+    """Router of ``xt`` (T, D): f32 logits (gathered whole where the
+    router's columns are split), top-k, softmax over the k gates.
+    Returns ``(gate (T, k) f32, idx (T, k) int64)``."""
+    logits = tp.full(*tp.linear(xt.float(), params["router"],
+                                tp.land("router")))
     gate, idx = torch.topk(logits, cfg.moe.top_k, dim=-1)
     return torch.softmax(gate, dim=-1), idx
 
@@ -95,15 +107,35 @@ def dispatch(idx: torch.Tensor, cfg):
     return order, sorted_token, keep, slot, cap
 
 
-def moe_ffn(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+def _experts(params: dict, grouped: torch.Tensor, dtype, tp=UNSPLIT):
+    """The batched expert FFN of ``grouped`` (E, cap, D); where 'model'
+    splits the experts, the rank's experts on their rows, the outputs
+    gathered over 'model'."""
+    lands = [tp.land(n) for n in ("w_gate", "w_up", "w_down")]
+    split = any(land.split for land in lands)
+    if split and any((land.kind, land.dim) != ("output", 0)
+                     for land in lands):
+        raise NotImplementedError(
+            f"expert tensors split as {lands}: the partitioned MoE splits "
+            f"the experts only")
+    if split:
+        grouped = tp.scatter(grouped, 0)
+    g = torch.bmm(grouped, params["w_gate"])
+    u = torch.bmm(grouped, params["w_up"])
+    h = F.silu(g.float()).to(dtype) * u
+    y = torch.bmm(h, params["w_down"])
+    return tp.gather(y, 0) if split else y
+
+
+def moe_ffn(params: dict, cfg, x: torch.Tensor, tp=UNSPLIT) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D). ``tp``: see the module docstring."""
     e = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, k = e.n_experts, e.top_k
     xt = x.reshape(T, D)
 
-    gate, idx = route(params, cfg, xt)
+    gate, idx = route(params, cfg, xt, tp)
     order, sorted_token, keep, slot, cap = dispatch(idx, cfg)
     sorted_gate = gate.reshape(-1)[order]
 
@@ -113,11 +145,7 @@ def moe_ffn(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     buf[slot] = xt[sorted_token]
     grouped = buf[:E * cap].reshape(E, cap, D)
 
-    # batched expert FFN
-    g = torch.bmm(grouped, params["w_gate"])
-    u = torch.bmm(grouped, params["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    y = torch.bmm(h, params["w_down"])
+    y = _experts(params, grouped, x.dtype, tp)
 
     # each kept assignment's expert output times its gate (bf16)
     y_flat = y.reshape(E * cap, D)
@@ -134,5 +162,5 @@ def moe_ffn(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
         out = out + parts[:, j]
 
     if e.n_shared_experts:
-        out = out + layers.swiglu(params["shared"], xt)
+        out = out + layers.swiglu(params["shared"], xt, tp.at("shared"))
     return out.reshape(B, S, D)

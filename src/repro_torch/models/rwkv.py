@@ -9,6 +9,15 @@ with w_t = exp(-exp(decay(x_t))). The reference scans the time steps with
 iteration in decode). ``S`` is f32, the token-shift carries
 ``prev_tmix`` / ``prev_cmix`` bf16, as in the reference. Plain torch: the
 reference has no kernel here.
+
+With ``tp`` (a ``parallel.tensor.TP``; the default ``tensor.UNSPLIT``
+runs every product whole) the parameters are the rank's blocks: where
+the heads divide over 'model', the receptance, key, value, gate and
+decay reach the rank's block of channels (split columns stay local,
+whole or summed ones are cut to the block) and the recurrence runs the
+rank's heads; a split ``wo`` contracts them and sums over 'model', a
+whole one reads them gathered. Channel-mix keeps ``ck``'s split columns
+local for ``cv``'s split rows.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.parallel.tensor import UNSPLIT
 
 
 def n_heads(cfg) -> int:
@@ -58,27 +68,38 @@ def _mix(x, xs, coef):
 
 
 def time_mix(params: dict, cfg, x: torch.Tensor, state: torch.Tensor,
-             prev_x: torch.Tensor):
+             prev_x: torch.Tensor, tp=UNSPLIT, keep_state: bool = True):
     """x (B, S, D); state (B, H, hd, hd) f32; prev_x (B, D). Returns
-    (out, state', last_x)."""
+    (out, state', last_x); without ``keep_state`` the state is None (a
+    split group's heads' state is not gathered)."""
     B, S, D = x.shape
-    h, hd = n_heads(cfg), cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
     xs = _token_shift(x, prev_x)
     mix = params["mix"].to(x.dtype)
-    xr, xk, xv, xg, xw = (_mix(x, xs, mix[i]) for i in range(5))
-
-    r = torch.matmul(xr, params["wr"]).reshape(B, S, h, hd).float()
-    k = torch.matmul(xk, params["wk"]).reshape(B, S, h, hd).float()
-    v = torch.matmul(xv, params["wv"]).reshape(B, S, h, hd).float()
-    g = F.silu(torch.matmul(xg, params["wg"]).float())
+    local = n_heads(cfg) % tp.size == 0
+    want = 2 if local else None  # the channel dim of (B, S, D)
+    out = []
+    for i, name in enumerate(("wr", "wk", "wv", "wg", "w_decay")):
+        y, yd = tp.linear(_mix(x, xs, mix[i]), params[name], tp.land(name))
+        out.append(tp.reform(y, yd, want))
+    r, k, v, g, dec = out
+    hl = r.shape[-1] // hd
+    r, k, v = (t.reshape(B, S, hl, hd).float() for t in (r, k, v))
+    g = F.silu(g.float())
     # data-dependent decay in (0, 1): w = exp(-exp(d(x)))
-    dec = torch.matmul(xw, params["w_decay"]).float() + params["decay_bias"]
-    w = torch.exp(-torch.exp(dec)).reshape(B, S, h, hd)
-    u = params["u"][None, :, :, None]
-    out, state = wkv_scan(r, k, v, w, u, state)
-    out = out.reshape(B, S, D)
-    out = torch.matmul((out * g).to(x.dtype), params["wo"])
-    return out, state, x[:, -1, :]
+    bias = tp.reform(params["decay_bias"], None, 0 if local else None)
+    w = torch.exp(-torch.exp(dec.float() + bias)).reshape(B, S, hl, hd)
+    u = tp.reform(params["u"], tp.land("u").dim, 0 if local else None)
+    s0 = tp.scatter(state, 1) if local else state
+    o, s_new = wkv_scan(r, k, v, w, u[None, :, :, None], s0)
+    o = (o.reshape(B, S, hl * hd) * g).to(x.dtype)
+    y, yd = tp.linear(o, params["wo"], tp.land("wo"),
+                      x_dim=0 if local else None)
+    if not keep_state:
+        s_new = None
+    elif local:
+        s_new = tp.gather(s_new, 1)
+    return tp.full(y, yd), s_new, x[:, -1, :]
 
 
 def wkv_scan(r, k, v, w, u, state):
@@ -93,12 +114,16 @@ def wkv_scan(r, k, v, w, u, state):
     return torch.stack(outs, dim=1), state
 
 
-def channel_mix(params: dict, cfg, x: torch.Tensor, prev_x: torch.Tensor):
+def channel_mix(params: dict, cfg, x: torch.Tensor, prev_x: torch.Tensor,
+                tp=UNSPLIT):
     xs = _token_shift(x, prev_x)
     mix = params["mix"].to(x.dtype)
     xk = _mix(x, xs, mix[1])
-    k = torch.square(F.relu(torch.matmul(xk, params["ck"]).float()))
-    return torch.matmul(k.to(x.dtype), params["cv"]), x[:, -1, :]
+    k, kd = tp.linear(xk, params["ck"], tp.land("ck"))
+    k = torch.square(F.relu(k.float())).to(x.dtype)
+    y, yd = tp.linear(k, params["cv"], tp.land("cv"),
+                      x_dim=None if kd is None else 0)
+    return tp.full(y, yd), x[:, -1, :]
 
 
 def init_state(cfg, batch: int, device=None,
@@ -115,20 +140,24 @@ def init_state(cfg, batch: int, device=None,
     )
 
 
-def rwkv_block(params: dict, cfg, x: torch.Tensor, state: dict):
+def rwkv_block(params: dict, cfg, x: torch.Tensor, state: dict, tp=UNSPLIT,
+               keep_state: bool = True):
     """Full RWKV6 block: time-mix + channel-mix with residuals.
 
     state: dict(S, prev_tmix, prev_cmix); returns (x', new state), the
     state's tensors new (the caller's are not written) and of its dtypes.
-    Works for a prompt (S tokens) and for decode (S == 1).
+    Works for a prompt (S tokens) and for decode (S == 1). ``tp`` and
+    ``keep_state``: see :func:`time_mix`.
     """
+    mix_tp = tp.at("tmix")
     h = layers.rms_norm(x, params["norm1"], cfg.norm_eps)
     att, S_new, last_t = time_mix(params["tmix"], cfg, h, state["S"],
-                                  state["prev_tmix"].to(x.dtype))
+                                  state["prev_tmix"].to(x.dtype), mix_tp,
+                                  keep_state)
     x = x + att
     h = layers.rms_norm(x, params["norm2"], cfg.norm_eps)
     ffn, last_c = channel_mix(params["tmix"], cfg, h,
-                              state["prev_cmix"].to(x.dtype))
+                              state["prev_cmix"].to(x.dtype), mix_tp)
     x = x + ffn
     return x, dict(S=S_new, prev_tmix=last_t.to(state["prev_tmix"].dtype),
                    prev_cmix=last_c.to(state["prev_cmix"].dtype))

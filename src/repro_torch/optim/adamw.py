@@ -155,7 +155,10 @@ def update_leaves(params, grads: list, state: dict, cfg: AdamWConfig, *,
     one's block: the elementwise part is, the int8 scale of a leaf is the
     max over every rank (exact), and the global norm sums each leaf's
     squares over the ranks holding its distinct blocks (another order
-    than the unsharded sum where a leaf is split)."""
+    than the unsharded sum where a leaf is split). Under the partitioned
+    program a leaf split over 'model' gets its gradient as the rank's
+    block, the block it stores, so each distinct block still counts
+    once."""
     params_l = list(leaves(params))
     if len(grads) != len(params_l):
         raise ValueError(f"{len(grads)} gradients for {len(params_l)} "

@@ -12,8 +12,9 @@ stream bitwise the unmeshed one.
 wave: its tokens, logprobs and selected KV pages), ``rows`` (a wave
 buffer's rows gathered for the host or the demand merge) and ``prefill``
 (the donor's prefill handed to every rank), ``train`` (a training
-step's parameter gathers and gradient reductions, :class:`MeshComm`)
-and ``checkpoint`` (leaves gathered for a save). A captured wave adds
+step's parameter gathers and gradient reductions, :class:`MeshComm`),
+``checkpoint`` (leaves gathered for a save) and ``tp`` (the partitioned
+layer program's crossings over 'model', ``parallel.tensor``). A captured wave adds
 its collectives on every replay, as its kernel launches
 (``runtime.graphs.KERNEL_COUNTERS``).
 
@@ -30,11 +31,14 @@ backward reduces the gradient. Over the data axes (``pod``, ``data``)
 every rank holds other rows of the batch, so the gradients are summed:
 in f32 and in rank order (an all-to-all brings each rank the pieces it
 keeps, which it adds in order), so that ``D`` data ranks give the bits
-of one rank taking ``D`` microbatches. Over ``model`` every rank
-computes the same full gradient from the same rows (the axis stores
-shards, it does not split the compute), so the backward takes the
-rank's slice and sums nothing: a sum there would multiply the gradient
-by the axis size.
+of one rank taking ``D`` microbatches. A leaf the partitioned layer
+program splits over ``model`` (``parallel.tensor``) is gathered over
+the data axes only, and its gradient arrives as the rank's block. A
+leaf whole over ``model`` (replicated, or split on its layer axis) is
+gathered over it too and read by the layer's replicated compute, so
+every rank of the group holds the same full gradient: the backward
+takes the rank's slice and sums nothing (a sum there would multiply
+the gradient by the axis size).
 
 On the card the group is NCCL, on the CPU gloo
 (``repro_torch.launch.mesh``). ``torch.distributed.all_gather`` with a
@@ -55,7 +59,7 @@ from repro_torch.parallel import sharding
 
 #: collective calls by purpose (see the module docstring)
 launches = {"wave": 0, "rows": 0, "prefill": 0, "train": 0,
-            "checkpoint": 0}
+            "checkpoint": 0, "tp": 0}
 
 #: the reference's collective kinds (its ``launch/roofline.py``)
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -63,6 +67,9 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 
 #: output bytes on this rank by kind since :func:`reset_bytes`
 collective_bytes = dict.fromkeys(KINDS, 0)
+#: the part of ``collective_bytes`` the partitioned layer program's
+#: crossings over 'model' moved (``parallel.tensor``)
+tp_bytes = dict.fromkeys(KINDS, 0)
 
 
 def reset_launches() -> None:
@@ -73,6 +80,7 @@ def reset_launches() -> None:
 def reset_bytes() -> None:
     for key in collective_bytes:
         collective_bytes[key] = 0
+        tp_bytes[key] = 0
 
 
 def _nbytes(t: torch.Tensor) -> int:

@@ -410,3 +410,81 @@ def place(tree, specs, mesh, coords: dict | None = None):
         block = t[local_slice(spec, tuple(t.shape), mesh, coords)]
         blocks.append(block.clone() if block.numel() != t.numel() else t)
     return unflatten(tree, blocks)
+
+
+# -- where 'model' lands ------------------------------------------------------
+
+#: the dims of a leaf (as a layer reads it, its layer axis dropped) that a
+#: product contracts over: ``x @ w`` reads dim 0 (the attention ``wo``
+#: dims 0 and 1; an expert tensor ``(E, in, out)`` dim 1; ``lm_head``,
+#: read as ``x @ w.T``, dim 1). The ``embedding`` is a lookup: both its
+#: dims are outputs (a tied one's unembedding contracts its dim 1)
+CONTRACTED = {
+    "wo": (0,), "wq": (0,), "wk": (0,), "wv": (0,), "wr": (0,), "wg": (0,),
+    "w_decay": (0,), "ck": (0,), "cv": (0,), "w_x": (0,), "w_gate_r": (0,),
+    "w_gate_i": (0,), "w_out": (0,), "w_gate": (0,), "w_up": (0,),
+    "w_down": (0,), "router": (0,), "lm_head": (1,),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Landing:
+    """Where 'model' lands on a leaf as a layer reads it: ``dim`` (None
+    when the leaf is whole: 'model' is absent or on its layer axis) and
+    ``kind``, ``"none"``, ``"layer"``, ``"output"`` or ``"contraction"``."""
+
+    dim: int | None
+    kind: str
+
+    @property
+    def split(self) -> bool:
+        return self.dim is not None
+
+
+def landing(name: str, spec, ndim: int, stacked: bool) -> Landing:
+    """The :class:`Landing` of one parameter leaf of ``ndim`` dims (the
+    stored leaf, a stacked one with its layer axis) under its fixed
+    ``spec``."""
+    entries = list(spec) + [None] * (ndim - len(spec))
+    if stacked:
+        if "model" in _axes_of(entries[0]):
+            return Landing(None, "layer")
+        entries = entries[1:]
+    dims = [i for i, e in enumerate(entries) if "model" in _axes_of(e)]
+    if not dims:
+        return Landing(None, "none")
+    dim = dims[0]
+    if name == "wo" and len(entries) == 3:
+        contracted = (0, 1)
+    elif name in ("w_gate", "w_up", "w_down") and len(entries) == 3:
+        contracted = (1,)
+    else:
+        contracted = CONTRACTED.get(name, ())
+    return Landing(dim, "contraction" if dim in contracted else "output")
+
+
+def landings(params, specs):
+    """A tree like ``params`` (a dict of tensors or fake tensors, the
+    reference's layout) with each leaf's :class:`Landing` under the spec
+    tree ``specs``; the leaves under ``params["layers"]`` carry a layer
+    axis where the layers are stacked."""
+    stacked = not isinstance(params["layers"], list)
+    out = {}
+    for key in params:
+        it = iter(spec_leaves(specs[key]))
+        out[key] = map_named(
+            lambda name, t, k=key: landing(name, next(it), t.ndim,
+                                           stacked and k == "layers"),
+            params[key], key)
+    return out
+
+
+def landing_leaves(tree) -> list:
+    """The :class:`Landing` s of a landing tree, in ``leaves`` order."""
+    if isinstance(tree, Landing):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in landing_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in landing_leaves(item)]
+    return []

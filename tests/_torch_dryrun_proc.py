@@ -48,9 +48,11 @@ def lower_families(mesh) -> dict:
 
 
 def flops_by_depth(mesh) -> dict:
-    """The train cell's counted FLOPs at 1, 2 and 3 layers."""
+    """The train cell's counted FLOPs at 2, 4 and 6 layers: 'model' lands
+    on the stacked FFN's layer axis where the depth is even (on its rows
+    where it is odd), so every layer of these runs the same program."""
     out = {}
-    for n in (1, 2, 3):
+    for n in (2, 4, 6):
         cfg = dataclasses.replace(configs.get("yi-6b").reduced(), n_layers=n)
         cost, rf = dryrun.lower_cell("yi-6b", cut("train_4k"), False,
                                      mesh=mesh, cfg=cfg)
@@ -63,10 +65,14 @@ def collective_case(mesh, fsdp: bool) -> dict:
     they should follow."""
     cfg = configs.get("yi-6b").reduced()
     cost = dryrun.trace_cell(cfg, cut("train_4k"), mesh, fsdp=fsdp)
-    _, ins, _ = train_step.make_train_step(cfg, mesh, fsdp=fsdp)
+    tp_bytes = dict(comm.tp_bytes)
+    fn, ins, _ = train_step.make_train_step(cfg, mesh, fsdp=fsdp)
     params = sharding.abstract(model.init_params, cfg, device="cpu")
     top, per_layer = train_step.layer_slots(params, cfg.n_layers)
-    return dict(coll=cost.coll, specs=list(sharding.spec_leaves(ins[0])),
+    return dict(coll=cost.coll, tp=tp_bytes,
+                split=[land.split for land in sharding.landing_leaves(
+                    fn.tp.lands)],
+                specs=list(sharding.spec_leaves(ins[0])),
                 shapes=[tuple(t.shape) for t in leaves(params)],
                 itemsize=[t.element_size() for t in leaves(params)],
                 top=top, layer=per_layer[0], n_layers=cfg.n_layers)

@@ -153,15 +153,25 @@ def loop_case(mesh_a, mesh_b, outdir: str) -> dict:
                 ckpt_a=run_a)
 
 
+def splits_model(spec: str) -> bool:
+    """Whether the mesh's 'model' axis has two or more ranks (the
+    partitioned program splits the products)."""
+    shape, axes = mesh_mod.parse_mesh_shape(spec)
+    return dict(zip(axes, shape)).get("model", 1) > 1
+
+
 def train_main(rank: int, world: int, store: str, outdir: str) -> None:
-    """Every case on every mesh of this world size (and, on 2 ranks, the
-    reference's (2, 1) witnesses and the checkpoint re-mesh)."""
+    """Every case on every mesh of this world size, a second time where
+    'model' splits the products (its run-to-run bits), and, on 2 ranks,
+    the reference's (2, 1) witnesses and the checkpoint re-mesh."""
     _init(rank, world, store)
     results = {}
     for spec in MESHES[world]:
         mesh = mesh_mod.make_serving_mesh(spec, device="cpu")
         for case in CASES:
             results[(spec, case)] = run_case(mesh, case)
+            if splits_model(spec):
+                results[(spec, case, "again")] = run_case(mesh, case)
     if world == 2:
         mesh21 = mesh_mod.make_serving_mesh("2x1", device="cpu")
         mesh12 = mesh_mod.make_serving_mesh("1x2", device="cpu")

@@ -271,11 +271,16 @@ def _axes(e) -> tuple:
 
 @pytest.mark.parametrize("fsdp", [False, True])
 def test_collective_bytes_reckoned_from_specs(fake_mesh, fsdp):
-    """The 2x2 training cell's bytes by kind equal the sum over the
-    parameters from their specs: a gather per use (a layer's twice with
-    remat, the rest once), a reduce-scatter of the block where a leaf is
-    split over 'data', else an all-reduce of its 'model' slice, and the
-    f32 scalars (the loss, each leaf's sum of squares)."""
+    """The 2x2 training cell's parameter traffic by kind equals the sum
+    over the parameters from their specs: a gather per use (a layer's
+    twice with remat, the rest once) over the axes the leaf's compute
+    does not split ('model' stays split where the partitioned program
+    splits the leaf's products), a reduce-scatter of the block where a
+    leaf is split over 'data', else an all-reduce of its 'model' slice,
+    and the f32 scalars (the loss, each leaf's sum of squares); the
+    partitioned program's own crossings over 'model' (``comm.tp_bytes``)
+    come on top, as all-gathers and all-reduces only (this cell's split
+    program gathers nothing: its kv heads divide over 'model')."""
     got = fake_mesh["coll"][fsdp]
     sizes = {"data": 2, "model": 2}
     L = got["n_layers"]
@@ -289,24 +294,35 @@ def test_collective_bytes_reckoned_from_specs(fake_mesh, fsdp):
             spec, shape, uses, calls = spec[1:], shape[1:], 2 * L, L
         else:
             uses = calls = 1
-        want["all-gather"] += uses * _gather_bytes(shape, spec, e, sizes)
         model_part = math.prod(sizes["model"] for x in spec
                                if "model" in _axes(x))
         sliced = math.prod(shape) // model_part * e
+        gathered, kept = spec, shape
+        if got["split"][j]:  # the rank's 'model' block is the operand
+            gathered = tuple(None if x == "model" else x for x in spec)
+            kept = tuple(n // sizes["model"] if x == "model" else n
+                         for n, x in zip(shape, list(spec) + [None] * (
+                             len(shape) - len(spec))))
+        want["all-gather"] += uses * _gather_bytes(kept, gathered, e, sizes)
         if any("data" in _axes(x) for x in spec):
             want["reduce-scatter"] += calls * sliced // sizes["data"]
         else:
             want["all-reduce"] += calls * sliced
     want["all-reduce"] += 4 + 4 * len(specs)
-    assert got["coll"] == want
+    tp = got["tp"]
+    assert tp["all-reduce"] > 0
+    assert all(tp[k] == 0 for k in tp if k != "all-reduce")
+    assert {k: v - tp[k] for k, v in got["coll"].items()} == want
 
 
 def test_counted_flops_linear_in_layers(fake_mesh):
     depth = fake_mesh["depth"]
-    assert depth[3]["flops"] - depth[2]["flops"] == \
-        depth[2]["flops"] - depth[1]["flops"] > 0
+    a, b, c = sorted(depth)
+    assert depth[c]["flops"] - depth[b]["flops"] == \
+        depth[b]["flops"] - depth[a]["flops"] > 0
     for n, d in depth.items():  # the rank counts its data share's rows
-        assert d["flops"] * 2 >= d["model_flops"], n
+        # and its 'model' share of the split products
+        assert d["flops"] * 4 >= d["model_flops"], n
 
 
 def test_fake_flops_equal_the_real_step(fake_mesh):
