@@ -165,7 +165,20 @@ one JSON line:
    (``FlopCounterMode``), which must equal the count the landings imply
    (``parallel.tensor.step_flops``) exactly; step ms (median of steps
    2-3, CUDA events: compute only); peak memory; the ``tp`` collectives
-   and their bytes a step; beside the unmeshed step's figures;
+   and their bytes a step; beside the unmeshed step's figures. Then rank
+   0's sectored decode step of yi-6b at full width and depth
+   (``make_sectored_decode_step(cfg, mesh, kernel=)``, ``fused`` and
+   ``fused_q8``, k = 4 + the probe) at ``1x2`` and ``1x4`` from the main
+   path's 4 prefilled prompts (saved by the main path): its query heads
+   over its 2 / 1 kv heads, so the paged kernel launches at Hkv = 2 and
+   1 with rep = 8. One step with the fake collectives mirrored
+   (each output filled from the rank's own input, so values stay
+   finite): every kernel call held to its plain version (KERNEL_TOL) and
+   every page selection equal to the unmeshed step's; then 3 timed steps
+   (CUDA events, compute only) launching the kernel once a layer each,
+   FLOPs equal to ``tensor.sectored_step_flops`` exactly, collectives
+   and bytes a step beside the gathered form's; the kernel timed at
+   these shapes (the kernels line's ``@tp_rank`` entries);
 4. cli — ``repro_torch.launch.serve.main`` (reduced config): with
    ``--telemetry`` (it prints the energy table); with the serving layer's
    flags (``--scheduler overlap --kv-pages --prefix-cache --shared-prefix
@@ -1594,6 +1607,8 @@ def main_path(torch, np, sa, launch_serve, cfg, params, card):
     # fused with graphs, metered (it computes the 4 prefills), then profiles
     sess, handles = run("fused", True, metered="sectored")
     first_prompt = handles[0].request.prompt
+    save_prefilled(torch, np, prefills, [h.request.prompt for h in handles],
+                   TP_SECTORED_STATE)
     backend, eager = sess.backend, eager_backend("fused")
     _, state1 = backend.prefill_fn(np.arange(8, dtype=np.int32)[None])
     exact = profile_pair(torch, "exact (prefill) step", backend.decode_fn,
@@ -2447,14 +2462,14 @@ def attend_pairs(torch, sectored_decode, rows):
     plain = sectored_decode.sectored_attend
 
     def paired(attn_params, cfg, x, cache, table_l, k_pages, probe=False,
-               kernel="dispatch", shard=None):
+               kernel="dispatch", **kw):
         if kernel != "fused":
             return plain(attn_params, cfg, x, cache, table_l, k_pages,
-                         probe=probe, kernel=kernel, shard=shard)
+                         probe=probe, kernel=kernel, **kw)
         od, _, td = plain(attn_params, cfg, x, cache, table_l, k_pages,
-                          probe=probe, kernel="dispatch", shard=shard)
+                          probe=probe, kernel="dispatch", **kw)
         out = plain(attn_params, cfg, x, cache, table_l, k_pages,
-                    probe=probe, kernel="fused", shard=shard)
+                    probe=probe, kernel="fused", **kw)
         of, _, tf = out
         rows.append(torch.stack([
             (of.float() - od.float()).abs().max() / od.float().abs().max(),
@@ -3506,15 +3521,271 @@ def dryrun_phase(card, real: dict, started: dict) -> dict:
 
 #: tp_rank: the 'model' sizes rank 0's split step runs at, on a fake group
 TP_RANK_SPECS = ("1x2", "1x4")
+#: tp_rank's sectored decode step: the main path's 4 prefilled prompts
+#: (saved by main_path), its seq_len (a page budget of 4 + the probe),
+#: the flavors, and the steps timed after one checked step
+TP_SECTORED_STATE = ROOT / "build" / "chip_smoke" / "tp_sectored_state.pt"
+TP_SECTORED = dict(seq_len=2048, flavors=("fused", "fused_q8"), steps=3)
 
 
-def tp_rank_worker(out: str, dev: str = "cuda", reduced: bool = False):
+def save_prefilled(torch, np, prefills, prompts, path) -> None:
+    """The prefilled states of ``prompts`` (batch-1 ``SectoredState``s in
+    ``prefills``, keyed by the prompt's bytes) as one batch, with each
+    prompt's greedy next token, saved to ``path`` for ``tp_rank``."""
+    rows = [prefills[np.asarray(p, np.int32)[None].tobytes()]
+            for p in prompts]
+    states = [state for _, state in rows]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(dict(
+        k=torch.cat([st.kv.k for st in states], 1),
+        v=torch.cat([st.kv.v for st in states], 1),
+        length=torch.cat([st.kv.length for st in states], 1),
+        table=torch.cat([st.table for st in states], 1),
+        position=torch.cat([st.position for st in states], 0),
+        token=torch.cat([torch.argmax(lg, -1) for lg, _ in rows])[:, None]
+        .to(torch.int32)), path)
+
+
+def load_prefilled(torch, sectored_decode, path, dev):
+    """:func:`save_prefilled`'s file as ``(state, token)`` on ``dev``."""
+    from repro_torch.models import attention
+    d = torch.load(path, map_location=dev)
+    return sectored_decode.SectoredState(
+        kv=attention.KVCache(k=d["k"], v=d["v"], length=d["length"]),
+        table=d["table"], position=d["position"]), d["token"]
+
+
+@contextlib.contextmanager
+def mirrored_collectives(dist):
+    """The fake group's collectives move nothing and leave their outputs
+    unset; inside the block each output is filled from this rank's own
+    input (as if every rank held rank 0's blocks), so every value of the
+    step stays finite and of a real magnitude, and the kernel and its
+    plain version are compared on such data."""
+    gather, to_all = dist.all_gather, dist.all_to_all_single
+
+    def all_gather(parts, t, *args, **kwargs):
+        work = gather(parts, t, *args, **kwargs)
+        for part in parts:
+            part.copy_(t)
+        return work
+
+    def all_to_all_single(out, t, *args, **kwargs):
+        work = to_all(out, t, *args, **kwargs)
+        out.copy_(t)
+        return work
+
+    dist.all_gather, dist.all_to_all_single = all_gather, all_to_all_single
+    try:
+        yield
+    finally:
+        dist.all_gather, dist.all_to_all_single = gather, to_all
+
+
+@contextlib.contextmanager
+def recorded(module, name: str, calls: list):
+    """Each call of ``module.name`` while the block runs, as ``(args,
+    kwargs, result)``."""
+    real = getattr(module, name)
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def tp_sectored(torch, cfg, dev: str, state_path=None, timed=True) -> dict:
+    """``tp_rank``'s sectored part: for each of TP_RANK_SPECS and each
+    flavor, rank 0's ``make_sectored_decode_step(cfg, mesh, kernel=)``
+    (the partitioned program: the rank's query heads over its kv heads'
+    selected pages) on the fake group of ``make_dryrun_mesh(spec=)``,
+    its collectives mirrored (:func:`mirrored_collectives`), over real
+    ``dev`` tensors: the main path's prefilled state (``state_path``;
+    None: 4 prompts prefilled here with the exact scan, a rehearsal)
+    placed by the step's state specs. One checked step: every paged
+    kernel call held to its plain version on the same inputs
+    (KERNEL_TOL), every page selection equal to the unmeshed step's on
+    the whole state; then TP_SECTORED["steps"] steps timed (CUDA events:
+    compute only) with the launch counters at 0 before them, one step
+    under ``FlopCounterMode`` (which must equal
+    ``tensor.sectored_step_flops``; the kernel's products are not
+    counted), and, with the fused flavor, the collective bytes of a step
+    of the gathered form the split program replaced. Only the checked
+    step is mirrored: the timed ones run on the fake group as it is (its
+    collectives leave their outputs unset, so their values are not
+    read). Returns the records and the kernels' timing entries."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import sectored_attention as sa
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model
+    from repro_torch.parallel import comm, sharding, tensor
+    from repro_torch.runtime import sector_predictor
+    from repro_torch.runtime import sectored_decode as sd
+    from repro_torch.train import step as train_step
+
+    cuda = dev == "cuda"
+    seq = TP_SECTORED["seq_len"]
+    k_pages = sd.topk_for(seq)
+    params = model.init_params(cfg, seed=0, device=dev)
+    if state_path is not None:
+        whole, token = load_prefilled(torch, sd, state_path, dev)
+    else:
+        backend = sd.SectoredKVBackend(cfg, params, seq_len=seq, device=dev,
+                                       graphs=False)
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab, (4, 800)).astype(np.int32)
+        logits, whole = backend.prefill_fn(prompts)
+        token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    rows = token.shape[0]
+    # the unmeshed step's selections on the whole state (one step)
+    want = []
+    with torch.no_grad(), recorded(sector_predictor, "predict_topk", want):
+        sd.sectored_decode_step(params, cfg, whole.clone(), token, k_pages,
+                                probe=True, kernel="fused")
+    records, kernels = [], []
+    for spec in TP_RANK_SPECS:
+        with mesh_mod.make_dryrun_mesh(spec=spec) as mesh, torch.no_grad():
+            gathered = None
+            for kernel in TP_SECTORED["flavors"]:
+                fn, (pspec, sspec, _), shape = sd.make_sectored_decode_step(
+                    cfg, mesh, batch=rows, seq_len=seq, kernel=kernel,
+                    probe=True)
+                tp = train_step.split_context(mesh, cfg, pspec)[0]
+                blocks = sharding.place(params, pspec, mesh)
+                state = sharding.place(whole, sspec, mesh)
+                calls, sels = [], []
+                with recorded(sa, "sectored_attention_paged", calls), \
+                        recorded(sector_predictor, "predict_topk", sels), \
+                        mirrored_collectives(dist):
+                    _, state = fn(blocks, state, token)
+                check = paged_calls_check(torch, sa, calls, kernel)
+                selections_equal = len(sels) == len(want) and all(
+                    torch.equal(a[2], b[2]) for a, b in zip(sels, want))
+                kv_heads = int(calls[0][0][0].shape[1])
+                entry = None
+                if timed:
+                    args, kw, _ = calls[0]
+                    flavor = "int8" if kw else "bf16"
+                    t = time_flavor(torch, sa, args, flavor, args, kw)
+                    entry = dict(spec=spec, flavor=flavor, timing=t,
+                                 shapes=dict(q=list(args[0].shape),
+                                             k_pages=list(args[1].shape),
+                                             page_idx=list(args[3].shape)),
+                                 max_abs_err=check["max_abs_err"])
+                spans = []
+                step = device_timer(torch, dev, spans)(fn)
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                sa.reset_launches()
+                comm.reset_launches()
+                comm.reset_bytes()
+                for _ in range(TP_SECTORED["steps"]):
+                    _, state = step(blocks, state, token)
+                if cuda:
+                    torch.cuda.synchronize()
+                n = TP_SECTORED["steps"]
+                launches = dict(sa.launches)
+                ms = span_ms(spans)
+                calls_a_step = dict(tp=comm.launches["tp"] / n,
+                                    wave=comm.launches["wave"] / n)
+                moved = {k: v / n for k, v in comm.collective_bytes.items()
+                         if v}
+                tp_moved = {k: v / n for k, v in comm.tp_bytes.items() if v}
+                with FlopCounterMode(display=False) as flops:
+                    fn(blocks, state, token)
+                implied = tensor.sectored_step_flops(
+                    cfg, tp, rows, 0 if cuda else (k_pages + 1) * sd.PAGE_SIZE)
+                if gathered is None:
+                    # on a fork: the placed state's table, lengths and
+                    # position are the whole state's own (whole over
+                    # 'model'), and the next flavor starts from them
+                    gathered = gathered_form_bytes(
+                        torch, cfg, mesh, blocks, pspec, sspec, shape,
+                        sharding.place(whole, sspec, mesh).fork(), token,
+                        k_pages, kernel)
+                if entry is not None:
+                    entry["launches"] = launches[entry["flavor"]]
+                    kernels.append(entry)
+                records.append(dict(
+                    spec=spec, kernel=kernel, model=tp.size, rows=rows,
+                    n_layers=cfg.n_layers, k_pages=k_pages, probe=True,
+                    kv_heads_a_rank=kv_heads,
+                    flops=flops.get_total_flops(), implied_flops=implied,
+                    step_ms=ms, median_ms=statistics.median(ms),
+                    peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                 if cuda else None),
+                    launches=launches, collectives_per_step=calls_a_step,
+                    bytes_per_step=moved, tp_bytes_per_step=tp_moved,
+                    gathered_form_bytes_per_step=gathered,
+                    selections_equal=selections_equal, kernel_check=check))
+                del blocks, state, calls
+                if cuda:
+                    torch.cuda.empty_cache()
+    return dict(records=records, kernels=kernels)
+
+
+def paged_calls_check(torch, sa, calls, kernel) -> dict:
+    """Each recorded paged kernel call held to its plain version on the
+    same inputs (KERNEL_TOL of its flavor); the largest errors."""
+    flavor = "bf16" if kernel == "fused" else "int8"
+    tol = KERNEL_TOL[flavor]
+    err_out = err_mass = 0.0
+    finite = True
+    for args, kw, (out, mass) in calls:
+        ref_out, ref_mass = sa.sectored_attention_paged_ref(*args, **kw)
+        err_out = max(err_out, float((out - ref_out).abs().max()))
+        err_mass = max(err_mass, float((mass - ref_mass).abs().max()))
+        finite &= bool(torch.isfinite(out).all())
+    ok = finite and err_out <= tol["out"] and err_mass <= tol["mass"]
+    return dict(calls=len(calls), flavor=flavor, err_out=err_out,
+                err_mass=err_mass, max_abs_err=max(err_out, err_mass),
+                finite=finite, ok=ok, tolerance=tol)
+
+
+def gathered_form_bytes(torch, cfg, mesh, blocks, pspec, sspec, shape,
+                        state, token, k_pages, kernel) -> dict:
+    """The collective bytes of one step of the form the split program
+    replaced (the dry run's before PR 27): every layer's parameters
+    gathered whole, the unsplit program, every kv head's selected pages
+    gathered to every rank."""
+    from repro_torch.parallel import comm, sharding
+    from repro_torch.runtime import sectored_decode as sd
+    from repro_torch.train import step as train_step
+
+    index, size = sharding.block_index(
+        sspec.kv.k, tuple(shape.kv.k.shape), mesh,
+        sharding.mesh_coords(mesh), 2)
+    serving = train_step.serving_params(cfg, mesh, pspec, split=False)
+    comm.reset_bytes()
+    tree, tp = serving(blocks)
+    sd.sectored_decode_step_(tree, cfg, state, token, k_pages, probe=True,
+                             kernel=kernel, shard=comm.PageShard(
+                                 mesh.get_group("model"), index, size),
+                             tp=tp)
+    return {k: v for k, v in comm.collective_bytes.items() if v}
+
+
+def tp_rank_worker(out: str, dev: str = "cuda", reduced: bool = False,
+                   state: str | None = None):
     """The ``tp_rank`` subprocess: for each of TP_RANK_SPECS, rank 0's
     training step of the ``train_mesh`` setup over the fake process group
     of ``make_dryrun_mesh(spec=)`` on real ``dev`` tensors holding the
     rank's blocks: 3 timed steps, then one under ``FlopCounterMode``;
-    writes the records to ``out`` (JSON). ``reduced`` rehearses it with
-    the reduced yi-6b on the CPU."""
+    then rank 0's sectored decode step of yi-6b at full width and depth
+    (:func:`tp_sectored`, from the prefilled ``state`` file); writes the
+    records to ``out`` (JSON). ``reduced`` rehearses it with the reduced
+    yi-6b on the CPU (its sectored part with 32 query heads over 4 kv
+    heads, as at full width, and prompts prefilled in the worker)."""
     import dataclasses
 
     import torch
@@ -3582,17 +3853,25 @@ def tp_rank_worker(out: str, dev: str = "cuda", reduced: bool = False):
             del params, opt
             if cuda:
                 torch.cuda.empty_cache()
-    Path(out).write_text(json.dumps(records))
+    full = configs.get(TRAIN["arch"])
+    sectored = tp_sectored(
+        torch, full.reduced(n_layers=2, n_heads=32, n_kv_heads=4)
+        if reduced else full, dev, state_path=state, timed=cuda)
+    Path(out).write_text(json.dumps(dict(train=records, **sectored)))
 
 
 def tp_rank_phase(card, unmeshed: dict, dev: str = "cuda",
-                  reduced: bool = False) -> dict:
+                  reduced: bool = False, state=None):
     """The ``tp_rank`` phase: :func:`tp_rank_worker` in a subprocess (it
     makes a fake process group, which this process, holding an NCCL one,
     cannot), waited for; every spec's counted FLOPs must equal the count
     its landings imply, with the split program's collectives counted.
-    ``unmeshed``: the ``train_mesh`` record's unmeshed figures and the
-    real step's FLOPs, printed beside. Returns the record."""
+    The sectored steps must also hold every paged kernel call to its
+    plain version, select the unmeshed step's pages and launch the kernel
+    once a layer a step. ``unmeshed``: the ``train_mesh`` record's
+    unmeshed figures and the real step's FLOPs, printed beside.
+    Returns the record and the kernel line's entries of the sectored
+    steps' paged kernel calls."""
     import os
 
     t_start = time.perf_counter()
@@ -3603,15 +3882,16 @@ def tp_rank_phase(card, unmeshed: dict, dev: str = "cuda",
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     code = (f"import chip_smoke; chip_smoke.tp_rank_worker({str(out)!r}, "
-            f"{dev!r}, {reduced!r})")
+            f"{dev!r}, {reduced!r}, {None if state is None else str(state)!r})")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         print(proc.stdout[-3000:] + proc.stderr[-6000:], file=sys.stderr)
         fail(f"tp_rank: the worker exited {proc.returncode}")
-    ranks = json.loads(out.read_text())
+    got = json.loads(out.read_text())
+    ranks, sectored = got["train"], got["records"]
     rec = dict(phase="tp_rank", card=card, unmeshed=unmeshed, ranks=ranks,
-               seconds=time.perf_counter() - t_start)
+               sectored=sectored, seconds=time.perf_counter() - t_start)
     emit(rec)
     for r in ranks:
         if r["flops"] != r["implied_flops"]:
@@ -3619,7 +3899,43 @@ def tp_rank_phase(card, unmeshed: dict, dev: str = "cuda",
                  f"{r['implied_flops']} the landings imply")
         if r["tp_collectives_per_step"] <= 0 or not r["split_leaves"]:
             fail(f"tp_rank {r['spec']}: the split program did not run: {r}")
-    return rec
+    for r in sectored:
+        name = f"tp_rank sectored {r['spec']} {r['kernel']}"
+        print(f"{name}: {r['median_ms']:.2f} ms a step, {r['n_layers']} "
+              f"layers, kv heads a rank {r['kv_heads_a_rank']}; collectives "
+              f"a step {r['collectives_per_step']}, bytes "
+              f"{r['bytes_per_step']} (gathered form "
+              f"{r['gathered_form_bytes_per_step']})", flush=True)
+        if r["flops"] != r["implied_flops"]:
+            fail(f"{name}: counted FLOPs {r['flops']} != the "
+                 f"{r['implied_flops']} of sectored_step_flops")
+        if not r["kernel_check"]["ok"]:
+            fail(f"{name}: the paged kernel disagrees with its plain "
+                 f"version: {r['kernel_check']}")
+        if not r["selections_equal"]:
+            fail(f"{name}: page selections differ from the unmeshed step's")
+        if r["collectives_per_step"]["tp"] <= 0 or (
+                r["collectives_per_step"]["wave"] <= 0):
+            fail(f"{name}: the split program did not run: {r}")
+        want = r["n_layers"] * TP_SECTORED["steps"]
+        flavor = r["kernel_check"]["flavor"]
+        if dev == "cuda" and r["launches"][flavor] != want:
+            fail(f"{name}: {r['launches']} paged kernel launches, want "
+                 f"{want} (one a layer a step)")
+    entries = []
+    for k in got["kernels"]:
+        t = k["timing"]
+        entries.append(dict(
+            name=f"sectored_attention_paged_{k['flavor']}@tp_rank_"
+                 f"{k['spec']}", route="cuda", source=KERNEL_SOURCE,
+            replaces=TPU_KERNEL,
+            path=(f"tp_rank: rank 0's sectored decode step over 'model' "
+                  f"({k['spec']}, eager), q {k['shapes']['q']}, pages "
+                  f"{k['shapes']['k_pages']}"),
+            launches=k["launches"], max_abs_err=k["max_abs_err"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    return rec, entries
 
 
 def paper_sim(card) -> dict:
@@ -3787,8 +4103,10 @@ def main(argv=None) -> int:
                             seconds=time.perf_counter() - t0))
         emit(records[-1])
         torch.cuda.empty_cache()
-        records.append(tp_rank_phase(card, dict(
-            train_rec["unmeshed"], flops=train_rec["real_step"]["flops"])))
+        tp_rec, tp_kernels = tp_rank_phase(card, dict(
+            train_rec["unmeshed"], flops=train_rec["real_step"]["flops"]),
+            state=TP_SECTORED_STATE)
+        records.append(tp_rec)
         torch.cuda.empty_cache()
         records.append(q8_reduced_check(torch, np, configs, model,
                                         sectored_decode, quantized_kv))
@@ -3878,6 +4196,8 @@ def main(argv=None) -> int:
             launches=launches[flavor], max_abs_err=worst[flavor],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    if not args.quick:
+        kernels += tp_kernels
     if not args.quick and any(k["launches"] == 0 for k in kernels):
         fail(f"a kernel of the main path was never launched: {kernels}")
     kernels += ops_kernels

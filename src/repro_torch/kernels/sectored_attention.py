@@ -118,6 +118,18 @@ def attend_pages(qg, k_sel, v_sel, valid):
     0-dim tensor on the device (a fill, no host copy) so CUDA divides
     instead of multiplying by a reciprocal.
     """
+    out, page_e, total_e = attend_pages_parts(qg, k_sel, v_sel, valid)
+    mass = page_e / torch.clamp_min(total_e[..., None], 1e-30)
+    return out, mass
+
+
+def attend_pages_parts(qg, k_sel, v_sel, valid):
+    """:func:`attend_pages` with the mass in its two parts: ``(out,
+    page_e (B, Hkv, K), total_e (B, Hkv))``, the softmax weights ``e``
+    summed over the query rows and each page's tokens, and over every
+    token: the mass is ``page_e / total_e``. Each query row's ``e`` is
+    taken against its own max, so the parts of a kv head's rows split
+    over ranks add up to the whole's parts."""
     hd = qg.shape[-1]
     scores = torch.einsum("bgrk,bgcpk->bgrcp", qg.to(k_sel.dtype).float(),
                           k_sel.float())
@@ -131,9 +143,7 @@ def attend_pages(qg, k_sel, v_sel, valid):
                        v_sel.float())
     den = torch.sum(e, dim=(-2, -1))[..., None]
     out = num / torch.clamp_min(den, 1e-30)
-    mass = torch.sum(e, dim=(2, 4)) / torch.clamp_min(
-        torch.sum(e, dim=(2, 3, 4))[..., None], 1e-30)
-    return out, mass
+    return out, torch.sum(e, dim=(2, 4)), torch.sum(e, dim=(2, 3, 4))
 
 
 def gather_pages(pages: torch.Tensor, page_idx: torch.Tensor) -> torch.Tensor:

@@ -35,12 +35,13 @@ of the KV cache, each layer's sequence over 'model' gathered before its
 attention (which then reads the kv heads of the rank's query heads) and
 the new row written back into the rank's block
 (``train.step.gathered_state``, as ``make_decode_step`` runs it).
-Variant ``sectored``: the sectored step's plain dispatch flavor on a
-cache whose pages are split over 'model' (over every axis for
-``long_500k``), only the selected pages gathered
-(``parallel.comm.PageShard``, as ``MeshBackend`` runs it); it keeps
-the gathered form: every layer's parameters whole and its compute
-unsplit (``runtime/sectored_decode.py`` has no partitioned program).
+Variant ``sectored``: the sectored step's plain dispatch flavor
+(``runtime.sectored_decode.mesh_step``, as ``make_sectored_decode_step``
+runs it on a mesh) on a cache whose pages are split over 'model' (over
+every axis for ``long_500k``), with the same partitioned program: each
+rank attends its query heads over the selected pages of the kv heads
+they read, gathered from the ranks that own them
+(``parallel.comm.PageShard``), the table whole on every rank.
 
 The layer loop is Python, so every layer is traced and counted (the
 reference corrects XLA's once-counted scan bodies with probe
@@ -210,14 +211,6 @@ def _rows(n: int, mesh, long_ctx: bool) -> int:
     return n // comm.MeshComm(mesh).data_shard()[1]
 
 
-def _owner(spec, shape, mesh, mc, dim: int) -> tuple[int, int]:
-    """(block index, block count) of this rank along ``dim`` under
-    ``spec``."""
-    sl = sharding.local_slice(spec, shape, mesh, mc.coords)[dim]
-    block = sl.stop - sl.start
-    return sl.start // block, shape[dim] // block
-
-
 def _train_program(cfg, sc, mesh, fsdp: bool, dev):
     arch = cfg.name.split("~")[0]
     ocfg = adamw.AdamWConfig(moment_dtype="bfloat16"
@@ -293,23 +286,18 @@ def _decode_program(cfg, sc, mesh, variant: str, dev):
         sspec = sharding.sectored_state_shardings(mesh, shape, long_ctx)
         k_pages = sectored_decode.topk_for(sc.seq_len,
                                            sectored_decode.TOPK_FRAC)
-        index, size = _owner(sspec.kv.k, tuple(shape.kv.k.shape), mesh, mc, 2)
-        group = None if long_ctx else mesh.get_group("model")
-        shard = comm.PageShard(group, index, size)
+        step_ = sectored_decode.mesh_step(cfg, mesh, specs, sspec, shape,
+                                          k_pages, long_context=long_ctx)
     else:
         shape = sharding.abstract(model.init_decode_state, cfg,
                                   sc.global_batch, sc.seq_len, device="cpu")
         sspec = sharding.decode_state_shardings(mesh, shape, long_ctx)
-
-    # the sectored step keeps the gathered form: whole parameters, unsplit
-    serving = step_mod.serving_params(cfg, mesh, specs, split=not sectored)
+        serving = step_mod.serving_params(cfg, mesh, specs)
 
     def fn(params, state, token):
-        tree, tp = serving(params)
         if sectored:
-            return sectored_decode.sectored_decode_step_(
-                tree, cfg, state, token, k_pages, kernel="dispatch",
-                shard=shard)
+            return step_(params, state, token)
+        tree, tp = serving(params)
         view, close = step_mod.gathered_state(state, sspec, cfg.n_layers,
                                               mesh, mc)
         logits = model.decode_step_(tree, cfg, view, token, tp=tp)

@@ -30,7 +30,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models import layers
-from repro_torch.parallel.tensor import UNSPLIT
+from repro_torch.parallel.tensor import UNSPLIT, heads_local
 
 NEG_INF = -1e30
 
@@ -76,9 +76,7 @@ def _split_qkv(params: dict, cfg, x: torch.Tensor, positions, tp):
     else whole and replicated."""
     heads = x.ndim - 1  # the heads dim of (..., H, hd)
     lq, lk, lv = tp.land("wq"), tp.land("wk"), tp.land("wv")
-    local = cfg.n_heads % tp.size == 0 and (
-        (lq.kind, lq.dim) == ("output", 1)
-        or (tp.land("wo").kind, tp.land("wo").dim) == ("contraction", 0))
+    local = heads_local(cfg, tp)
     xc = tp.copy_for(x, lq, lk, lv)
     q, qd = tp.linear(x, params["wq"], lq, copied=xc)
     k, kd = tp.linear(x, params["wk"], lk, copied=xc)

@@ -159,20 +159,65 @@ def broadcast_(tree, src: int, group) -> object:
     return tree
 
 
+def all_to_all(t: torch.Tensor, group, *,
+               purpose: str = "wave") -> torch.Tensor:
+    """``t`` (n, ...) over a group of n ranks: row j goes to the group's
+    rank j; row j of the result came from rank j."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    launches[purpose] += 1
+    collective_bytes["all-to-all"] += _nbytes(out)
+    return out
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class PageShard:
-    """A rank's block of a KV cache whose page axis is split over the
-    mesh's 'model' axis: ``index`` of ``size`` equal blocks, the others
-    held by the ranks of ``group``.
+    """A rank's block of a KV cache whose page axis is split over a group
+    of ranks (the mesh's 'model' axis, or every rank for a long context):
+    ``index`` of ``size`` equal blocks, the others held by the ranks of
+    ``group`` (None: every rank), block j by the group's rank j.
 
     A sectored step over such a cache writes each new K/V row on the
     rank that owns its position (:meth:`append_`) and reads its selected
-    pages through :meth:`gather_pages`.
+    pages through :meth:`gather_pages`. ``rows``: for each member of the
+    group, the kv head of each row its attention reads (the partitioned
+    program's rank attends only its query heads' kv heads); None where
+    every member reads every kv head.
     """
 
     group: object
     index: int
     size: int
+    rows: tuple | None = None
+
+    @classmethod
+    def of(cls, mesh, spec, shape, *, long_context: bool = False,
+           rows_for=None) -> "PageShard":
+        """This rank's shard of a KV leaf ``(L, B, S, Hkv, hd)`` of global
+        ``shape`` under ``spec``, its sequence split over 'model' (over
+        every axis for ``long_context``). ``rows_for(i)``: the kv head of
+        each attention row of a rank at 'model' index ``i`` (None: every
+        kv head on every rank)."""
+        mc = MeshComm(mesh)
+        index, size = sharding.block_index(spec, tuple(shape), mesh,
+                                           mc.coords, 2)
+        if long_context:
+            group, members = None, [c["model"] if "model" in c else 0
+                                    for c in mc.rank_coords]
+            want = dist.get_rank()
+        else:
+            group = mesh.get_group("model")
+            members = list(range(mc.sizes.get("model", 1)))
+            want = mc.coords.get("model", 0)
+        if size != len(members) or index != want:
+            raise ValueError(
+                f"a page shard needs block j of the sequence on the "
+                f"group's rank j: block {index} of {size} on a group of "
+                f"{len(members)} (rank {want})")
+        rows = None if rows_for is None else tuple(
+            tuple(rows_for(i)) for i in members)
+        return cls(group, index, size, rows)
 
     def append_(self, k: torch.Tensor, v: torch.Tensor, length, k_new,
                 v_new) -> None:
@@ -191,25 +236,40 @@ class PageShard:
 
     def gather_pages(self, pages: torch.Tensor,
                      page_idx: torch.Tensor) -> torch.Tensor:
-        """This block's pages (B, P_block, page, Hkv, hd) -> a full-length
-        page buffer (B, P_block * size, page, Hkv, hd) that holds the
-        pages ``page_idx`` (B, Hkv, K) selects at their own page indices
-        (every other page zero). Each rank reads the selected pages at
-        their offset in its block, one all-gather brings every rank's
-        reads, and each selected page is taken from the rank that owns
-        it: only the selected pages cross ranks, and unchanged."""
+        """This block's pages (B, P_block, page, Hkv, hd) and the selected
+        page indices of every kv head (B, Hkv, K) -> the selected pages of
+        this rank's rows, (B, R, K, page, hd): row r holds the pages of kv
+        head ``rows[index][r]`` (of kv head r where ``rows`` is None), in
+        selection order.
+
+        Each rank reads, for every member of the group, the selected
+        pages of that member's rows at their offset in its own block; an
+        all-gather (every member reads every kv head) or an all-to-all
+        (each member its rows) brings each rank every member's reads, and
+        each page is taken from the rank that owns it: only selected pages
+        cross ranks, and unchanged. Nothing full-length is built."""
         B, pb, page, hkv, hd = pages.shape
+        dev = pages.device
         idx = page_idx.long()
-        owner = idx // pb
-        b = torch.arange(B, device=pages.device)[:, None, None]
-        h = torch.arange(hkv, device=pages.device)[None, :, None]
-        mine = pages.permute(0, 3, 1, 2, 4)[b, h, idx % pb]  # (B,H,K,p,hd)
-        every = all_gather_cat(mine[None], self.group)  # (size, B,H,K,p,hd)
-        selected = every[owner, b, h, torch.arange(
-            idx.shape[-1], device=pages.device)[None, None, :]]
-        full = pages.new_zeros((B, pb * self.size, page, hkv, hd))
-        full[b, idx, :, h, :] = selected
-        return full
+        by_head = pages.permute(0, 3, 1, 2, 4)  # (B, Hkv, P_block, page, hd)
+        b = torch.arange(B, device=dev)
+        if self.rows is None:
+            mine = by_head[b[:, None, None], torch.arange(
+                hkv, device=dev)[None, :, None], idx % pb]  # (B, H, K, ..)
+            every = all_gather_cat(mine[None], self.group)
+            own = idx
+        else:
+            heads = torch.tensor(self.rows, device=dev)  # (size, R)
+            want = idx[:, heads].transpose(0, 1)  # (size, B, R, K)
+            # (size, B, R, K, page, hd): member j's reads in row j
+            mine = by_head[b[None, :, None, None], heads[:, None, :, None],
+                           want % pb]
+            every = all_to_all(mine, self.group)
+            own = want[self.index]
+        rows, k = own.shape[1:]
+        return every[own // pb, b[:, None, None],
+                     torch.arange(rows, device=dev)[None, :, None],
+                     torch.arange(k, device=dev)[None, None, :]]
 
 
 # -- training over a mesh ------------------------------------------------------

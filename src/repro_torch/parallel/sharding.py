@@ -388,6 +388,15 @@ def local_slice(spec, shape, mesh, coords: dict[str, int]) -> tuple:
     return tuple(index)
 
 
+def block_index(spec, shape, mesh, coords: dict[str, int],
+                dim: int) -> tuple[int, int]:
+    """``(index, count)`` of one rank's block along ``dim`` of a global
+    array of ``shape`` under ``spec`` (:func:`local_slice`)."""
+    sl = local_slice(spec, shape, mesh, coords)[dim]
+    block = sl.stop - sl.start
+    return sl.start // block, shape[dim] // block
+
+
 def opt_state_shardings(param_specs, opt_cfg) -> dict:
     """The optimizer state's spec tree, as the reference's
     ``train/step.py`` builds it: ``mu`` and ``nu`` (and ``ef`` with

@@ -279,16 +279,31 @@ def context(mesh, params, specs) -> TP:
 # -- the FLOPs the landings imply ---------------------------------------------
 
 
-def _attn_flops(cfg, tp, t: int, b: int, s: int):
-    hd, H, Hkv, d = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+def heads_local(cfg, tp) -> bool:
+    """Whether the attention core runs the rank's block of the query
+    heads (``tp``: an attention layer's context): the heads divide over
+    'model' and ``wq`` splits its heads or ``wo`` its head rows."""
     lq, lo = tp.land("wq"), tp.land("wo")
-    local = H % tp.size == 0 and ((lq.kind, lq.dim) == ("output", 1)
-                                  or (lo.kind, lo.dim) == ("contraction", 0))
-    heads = H // tp.size if local else H
+    return cfg.n_heads % tp.size == 0 and (
+        (lq.kind, lq.dim) == ("output", 1)
+        or (lo.kind, lo.dim) == ("contraction", 0))
+
+
+def _core_heads(cfg, tp) -> int:
+    return cfg.n_heads // tp.size if heads_local(cfg, tp) else cfg.n_heads
+
+
+def _proj_flops(cfg, tp, t: int) -> int:
+    """The q/k/v and output projections of ``t`` tokens."""
+    hd, H, Hkv, d = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     return (2 * t * d * H * hd // tp.share("wq")
             + 2 * 2 * t * d * Hkv * hd // tp.share("wk")
-            + 2 * 2 * b * heads * s * s * hd
             + 2 * t * H * hd * d // tp.share("wo"))
+
+
+def _attn_flops(cfg, tp, t: int, b: int, s: int):
+    return (_proj_flops(cfg, tp, t)
+            + 2 * 2 * b * _core_heads(cfg, tp) * s * s * cfg.head_dim_)
 
 
 def _swiglu_flops(tp, t: int, d: int, f: int) -> int:
@@ -366,3 +381,30 @@ def step_flops(cfg, tp, rows: int, seq_len: int) -> int:
     head = "embedding" if cfg.tie_embeddings else "lm_head"
     return total + 3 * 2 * rows * seq_len * cfg.d_model * cfg.vocab // (
         tp.share(head))
+
+
+def sectored_step_flops(cfg, tp, rows: int, tokens: int) -> int:
+    """The FLOPs of one sectored decode step on a rank
+    (``runtime.sectored_decode.sectored_decode_step_``) holding ``rows``
+    rows, as ``FlopCounterMode`` counts them, from the landings of ``tp``
+    (:data:`UNSPLIT`: the unsplit step): each layer's projections and FFN
+    on ``rows`` tokens, split as :func:`layer_flops` splits them, and its
+    attention core over ``tokens`` token slots a query head (the selected
+    pages, probe included, times the page size) for the core's heads on
+    the rank; the logits forward only. ``tokens=0`` where the core is
+    the paged kernel on the card (the fused flavors), which the counter
+    does not see."""
+    total = 0
+    for i in range(cfg.n_layers):
+        ltp = tp.layer(i)
+        attn = ltp.at("attn")
+        total += (_proj_flops(cfg, attn, rows)
+                  + 2 * 2 * rows * _core_heads(cfg, attn) * tokens
+                  * cfg.head_dim_)
+        if cfg.moe:
+            total += _moe_flops(cfg, ltp.at("moe"), rows)
+        else:
+            total += _swiglu_flops(ltp.at("mlp"), rows, cfg.d_model,
+                                   cfg.d_ff)
+    head = "embedding" if cfg.tie_embeddings else "lm_head"
+    return total + 2 * rows * cfg.d_model * cfg.vocab // tp.share(head)

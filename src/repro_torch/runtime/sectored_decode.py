@@ -40,15 +40,31 @@ Port notes:
   write into the cached entry) and ``suffix_prefill`` runs the prefill's
   step from that seed;
 * a cache whose page axis is split over a mesh's 'model' axis
-  (``serve.mesh_backend.MeshBackend``): where the reference's SPMD
-  partitioner gathers the selected pages across shards, a step built
-  with ``shard=`` (:class:`~repro_torch.parallel.comm.PageShard`)
-  writes each new row on the rank that owns its position and assembles
-  the selected pages into a full-length page buffer, at their own page
-  indices, before the attend. The attend (the dispatch gather or the
-  paged kernel) then runs on it exactly as on an unsharded cache, with
-  the original page indices and length, so its length mask and per-page
-  mass are unchanged.
+  (``serve.mesh_backend.MeshBackend``; every axis for a long context):
+  where the reference's SPMD partitioner gathers the selected pages
+  across shards, a step built with ``shard=``
+  (:class:`~repro_torch.parallel.comm.PageShard`) writes each new row
+  on the rank that owns its position and brings the rank the selected
+  pages of the kv heads it reads from the ranks that own them. The
+  dispatch attend reads them as it reads a gather from a whole cache;
+  the paged kernel gets a buffer of the selected pages only (slot j
+  holds the j-th selected page, whose valid tokens the count
+  ``_slot_length`` gives), which changes neither its length mask nor
+  its per-page mass.
+
+The partitioned program (``tp``, a ``parallel.tensor.TP``; the default
+``tensor.UNSPLIT`` runs today's ops of the unsplit program): as the
+reference's step jitted under its shardings, the projections, FFN,
+embedding and logits run as ``model.decode_step_`` runs them under
+``tp``; the table is whole on every rank (``sectored_state_shardings``
+replicates it over 'model'), so every rank selects the same pages; the
+rank attends its query heads over the kv heads they read
+(:func:`attend_rows`); the page mass is gathered over 'model' (a kv
+head whose query heads straddle ranks: each rank's part of its sums,
+summed over 'model'), so every rank applies the same table update; and
+``wo``'s partial products are summed over 'model'.
+:func:`make_sectored_decode_step` on a DeviceMesh runs it on the rank's
+blocks (:func:`mesh_step`).
 """
 
 from __future__ import annotations
@@ -60,11 +76,13 @@ import torch
 
 from repro_torch.kernels import backend, quantized_kv, sectored_attention
 from repro_torch.models import attention, layers, model
-from repro_torch.parallel import sharding
+from repro_torch.parallel import comm, sharding, tensor
+from repro_torch.parallel.tensor import UNSPLIT
 from repro_torch.runtime import sector_predictor
 from repro_torch.runtime.graphs import Step, copy_tree_, leaves
 from repro_torch.serve.backend import ServingBackend
 from repro_torch.telemetry.meters import KVGeometry
+from repro_torch.train import step as step_mod
 
 PAGE_SIZE = 128  # tokens per KV sector
 TOPK_FRAC = 1 / 8  # fraction of pages fetched
@@ -182,9 +200,31 @@ def init_state(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                                               device=dev))
 
 
+def attend_rows(cfg, tp=UNSPLIT):
+    """``(rows, rep)`` of a rank's sectored attend (``tp``: an attention
+    layer's context): the kv head each row reads and the query heads a
+    row (``rows`` None: every kv head, ``rep = H / Hkv``, the unsplit
+    core). Where the core splits the query heads
+    (``tensor.heads_local``) the rank's block of them is ``n = H / m``
+    heads: whole kv heads where ``n`` is a multiple of ``rep``; one kv
+    head's ``n`` heads where ``rep`` is a multiple of ``n`` (the kv
+    head's query heads straddle ranks); else one row a query head, each
+    reading its own kv head (``attention._core_kv``'s rule)."""
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if not tensor.heads_local(cfg, tp):
+        return None, rep
+    h0, h1 = tp.block(cfg.n_heads)
+    n = h1 - h0
+    if n % rep == 0:
+        return tuple(range(h0 // rep, h1 // rep)), rep
+    if rep % n == 0:
+        return (h0 // rep,), n
+    return tuple(j // rep for j in range(h0, h1)), 1
+
+
 def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
                     k_pages: int, probe: bool = False,
-                    kernel: str = "dispatch", shard=None):
+                    kernel: str = "dispatch", shard=None, tp=UNSPLIT):
     """One-token decode attention over predictor-selected KV sectors.
 
     x: (B, 1, D). Returns (out, new_cache, new_table_l); the new K/V row is
@@ -196,12 +236,15 @@ def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
     attended (see the module docstring). ``shard`` (a
     :class:`~repro_torch.parallel.comm.PageShard`): ``cache`` holds this
     rank's block of pages, and the selected pages are gathered across
-    ranks first.
+    ranks first. ``tp`` (a ``parallel.tensor.TP``; the default runs the
+    unsplit program): the partitioned program, see the module docstring.
     """
     B = x.shape[0]
     hkv, hd = cfg.n_kv_heads, cfg.head_dim_
-    rep = cfg.n_heads // hkv
-    q, k_new, v_new = attention.qkv(attn_params, cfg, x, cache.length[:, None])
+    q, k_new, v_new, local, kv_local = attention._split_qkv(
+        attn_params, cfg, x, cache.length[:, None], tp)
+    if kv_local:
+        k_new, v_new = tp.gather(k_new, -2), tp.gather(v_new, -2)
     probe_page = None
     select_k = k_pages
     if probe:
@@ -225,73 +268,142 @@ def sectored_attend(attn_params, cfg, x, cache: attention.KVCache, table_l,
             table_l, cache.length, PAGE_SIZE, select_k, probe_page=probe_page)
         pages = page_idx
 
-    qg = q[:, 0].reshape(B, hkv, rep, hd)
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}; got {kernel!r}")
+    heads, rep = attend_rows(cfg, tp)
+    # the rank holds some of a kv head's query heads: its mass is a part
+    partial = rep != cfg.n_heads // hkv
+    if partial and kernel != "dispatch":
+        raise ValueError(
+            f"the {kernel} kernel returns each kv head's mass normalised "
+            f"over the rank's query heads: it needs whole kv heads on a "
+            f"rank ({cfg.n_heads} heads over {tp.size} ranks, "
+            f"{cfg.n_heads // hkv} a kv head)")
+    qg = q[:, 0].reshape(B, -1, rep, hd)
     kp = k.view(B, -1, PAGE_SIZE, hkv, hd)
     vp = v.view(B, -1, PAGE_SIZE, hkv, hd)
-    if shard is not None:
-        kp = shard.gather_pages(kp, pages)
-        vp = shard.gather_pages(vp, pages)
+    row_pages = pages if heads is None else pages[:, list(heads)]
+    if shard is None and heads is None and kernel != "dispatch":
+        # the unsplit program on a whole cache: the kernel steers its
+        # reads through the cache's page-major view
+        out, mass = _fused(kernel, qg.contiguous(), kp, vp, page_idx,
+                           cache.length + 1)
+    else:
+        if shard is not None:
+            # the selected pages of the rank's rows, from their owners
+            k_sel = shard.gather_pages(kp, pages)
+            v_sel = shard.gather_pages(vp, pages)
+        else:
+            # with every valid page selected (exact mode) the gathered
+            # buffer is the dense cache prefix in ascending page order
+            k_sel = sectored_attention.gather_pages(kp, pages)
+            v_sel = sectored_attention.gather_pages(vp, pages)
+            if heads is not None:
+                k_sel, v_sel = k_sel[:, list(heads)], v_sel[:, list(heads)]
+        if kernel != "dispatch":
+            # the kernel takes a page-major buffer of the selected pages
+            # only, slot j holding the rows' j-th selected page
+            out, mass = _fused(
+                kernel, qg.contiguous(),
+                k_sel.permute(0, 2, 3, 1, 4).contiguous(),
+                v_sel.permute(0, 2, 3, 1, 4).contiguous(),
+                _slots(B, select_k, x.device),
+                _slot_length(row_pages, cache.length + 1))
     if kernel == "dispatch":
-        # gather the selected pages, then attend; with every valid page
-        # selected (exact mode) the gathered buffer is the dense cache
-        # prefix in ascending page order
-        k_sel = sectored_attention.gather_pages(kp, pages)
-        v_sel = sectored_attention.gather_pages(vp, pages)
-        tok_pos = (pages[..., None].long() * PAGE_SIZE
+        tok_pos = (row_pages[..., None].long() * PAGE_SIZE
                    + torch.arange(PAGE_SIZE, device=x.device))
         valid = tok_pos <= cache.length[:, None, None, None]
-        out, mass = sectored_attention.attend_pages(qg, k_sel, v_sel, valid)
-    elif kernel in ("fused", "fused_q8"):
-        qg = qg.contiguous()
-        length = cache.length + 1  # the kernel's count convention
-        if kernel == "fused_q8":
-            kq, k_scale = quantized_kv.quantize_pages(kp)
-            vq, v_scale = quantized_kv.quantize_pages(vp)
-            out, mass = sectored_attention.sectored_attention_paged(
-                qg, kq, vq, page_idx, length, k_scale=k_scale,
-                v_scale=v_scale)
+        if partial:
+            out, page_e, total_e = sectored_attention.attend_pages_parts(
+                qg, k_sel, v_sel, valid)
+            mass = _whole_mass(tp, heads, hkv, page_e, total_e)
         else:
-            out, mass = sectored_attention.sectored_attention_paged(
-                qg, kp, vp, page_idx, length)
-    else:
-        raise ValueError(f"kernel must be one of {KERNELS}; got {kernel!r}")
+            out, mass = sectored_attention.attend_pages(qg, k_sel, v_sel,
+                                                        valid)
+    if heads is not None and not partial:
+        mass = tp.gather(mass, 1)  # the rank's block of kv heads
 
-    out = out.to(x.dtype).reshape(B, 1, cfg.n_heads, hd)
-    out = attention.out_project(out, attn_params["wo"])
+    out = out.to(x.dtype).reshape(B, 1, -1, hd)
+    out = attention.out_project(out, attn_params["wo"], tp, local)
     new_table = sector_predictor.update(table_l, pages, mass)
     new_cache = attention.KVCache(k=k, v=v, length=cache.length + 1)
     return out, new_cache, new_table
 
 
+def _fused(kernel, qg, kp, vp, page_idx, length):
+    """The paged kernel over page-major pages, bf16 or (``fused_q8``)
+    int8 with per-sector scales."""
+    if kernel == "fused_q8":
+        kq, k_scale = quantized_kv.quantize_pages(kp)
+        vq, v_scale = quantized_kv.quantize_pages(vp)
+        return sectored_attention.sectored_attention_paged(
+            qg, kq, vq, page_idx, length, k_scale=k_scale, v_scale=v_scale)
+    return sectored_attention.sectored_attention_paged(qg, kp, vp, page_idx,
+                                                       length)
+
+
+def _slots(B: int, k: int, device) -> torch.Tensor:
+    """Page indices 0..k-1 of a buffer of k selected pages, shared by
+    every head: (B, 1, k) int32."""
+    return torch.arange(k, dtype=torch.int32, device=device).expand(
+        B, 1, k).contiguous()
+
+
+def _slot_length(pages, length) -> torch.Tensor:
+    """The kernel's count for a buffer whose slot j holds selected page
+    ``pages[..., j]`` (B, R, K): the valid tokens of the selected pages.
+    A selection is ascending, every valid page before any page past the
+    fill, and holds the page being written (the recency bonus), so each
+    slot's valid tokens are ``clamp(count - j * page, 0, page)`` for this
+    count, the same for every row."""
+    valid = torch.clamp(length[:, None].long() - pages[:, 0].long()
+                        * PAGE_SIZE, 0, PAGE_SIZE)
+    return torch.sum(valid, dim=-1).to(torch.int32)
+
+
+def _whole_mass(tp, heads, hkv: int, page_e, total_e) -> torch.Tensor:
+    """Each kv head's page mass from the parts of the rank's rows
+    (``attend_pages_parts``), the parts summed over 'model' (f32, in rank
+    order): the same bits on every rank."""
+    idx = torch.as_tensor(heads, device=page_e.device)
+    B, _, K = page_e.shape
+    pe = page_e.new_zeros((B, hkv, K)).index_add_(1, idx, page_e)
+    te = total_e.new_zeros((B, hkv)).index_add_(1, idx, total_e)
+    return tp.sum(pe) / torch.clamp_min(tp.sum(te)[..., None], 1e-30)
+
+
 def sectored_decode_step_(params, cfg, state: SectoredState, token,
                           k_pages: int, probe: bool = False,
-                          kernel: str = "dispatch",
-                          shard=None) -> torch.Tensor:
+                          kernel: str = "dispatch", shard=None,
+                          tp=UNSPLIT) -> torch.Tensor:
     """Full-model one-token decode with sectored attention per layer, in
     place: token (B, 1) int -> logits (B, vocab).
 
     The new K/V rows, lengths, table and position are written into
     ``state``; no buffer of it moves and nothing syncs with the host, so a
     CUDA graph can capture the step. ``shard``: ``state``'s K/V hold one
-    block of a page-sharded cache (see :func:`sectored_attend`).
+    block of a page-sharded cache (see :func:`sectored_attend`). ``tp``:
+    the partitioned program (embed, FFN and logits as
+    ``model.decode_step_`` runs them under ``tp``).
     """
-    x = layers.embed(params, token)
+    x = layers.embed(params, token, tp)
     for i in range(cfg.n_layers):
         lp = model.layer_params(params, i)
+        ltp = tp.layer(i)
         cache = attention.KVCache(k=state.kv.k[i], v=state.kv.v[i],
                                   length=state.kv.length[i])
         h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
         att, cache_new, table_new = sectored_attend(
             lp["attn"], cfg, h, cache, state.table[i], k_pages, probe=probe,
-            kernel=kernel, shard=shard)
+            kernel=kernel, shard=shard, tp=ltp.at("attn"))
         state.kv.length[i].copy_(cache_new.length)
         state.table[i].copy_(table_new)
         x = x + att
         h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + model.ffn(lp, cfg, h)
+        x = x + model.ffn(lp, cfg, h, ltp)
     hidden = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     state.position.add_(1)
-    return model.logits_fn(params, cfg, hidden)[:, 0, :]
+    return model.logits_fn(params, cfg, hidden, tp)[:, 0, :]
 
 
 def sectored_decode_step(params, cfg, state: SectoredState, token,
@@ -518,19 +630,53 @@ def make_serving_fns(cfg, *, params, seq_len: int,
                              kernel=kernel, device=device, graphs=graphs)
 
 
+def mesh_step(cfg, mesh, pspec, sspec, state_shape, k_pages: int, *,
+              long_context: bool = False, kernel: str = "dispatch",
+              probe: bool = False):
+    """``step_(params, state, token) -> logits``: the partitioned
+    sectored step on a DeviceMesh, in place on the rank's blocks.
+    ``params`` are its blocks under ``pspec`` (each layer's leaves
+    gathered as the layer runs, over the data axes and where 'model'
+    does not split their compute: ``train.step.serving_params``),
+    ``state`` its block under ``sspec`` (``sectored_state_shardings`` of
+    ``state_shape``: the K/V pages split over 'model', over every axis
+    for ``long_context``; the table, lengths and position whole over
+    'model'), ``token`` its rows. Each rank attends its query heads over
+    the selected pages of the kv heads they read (:func:`attend_rows`),
+    gathered from the ranks that own them
+    (:class:`~repro_torch.parallel.comm.PageShard`)."""
+    serving = step_mod.serving_params(cfg, mesh, pspec)
+    attn = step_mod.split_context(mesh, cfg, pspec)[0].layer(0).at("attn")
+    rows_for = None
+    if attend_rows(cfg, attn)[0] is not None:
+        def rows_for(i):
+            return attend_rows(cfg, dataclasses.replace(attn, index=i))[0]
+    shard = comm.PageShard.of(mesh, sspec.kv.k, state_shape.kv.k.shape,
+                              long_context=long_context, rows_for=rows_for)
+
+    def step_(params, state, token):
+        tree, tp = serving(params)
+        return sectored_decode_step_(tree, cfg, state, token, k_pages,
+                                     probe=probe, kernel=kernel, shard=shard,
+                                     tp=tp)
+
+    return step_
+
+
 def make_sectored_decode_step(cfg, mesh, *, batch: int, seq_len: int,
                               long_context: bool = False,
-                              topk_frac: float = TOPK_FRAC):
+                              topk_frac: float = TOPK_FRAC,
+                              kernel: str = "dispatch", probe: bool = False):
     """Factory mirroring ``train.step.make_decode_step`` for the sectored
     path: ``(fn, (param_specs, state_specs, token_spec), state_shape)``,
     the specs from :mod:`repro_torch.parallel.sharding` over fake-tensor
     shapes (nothing is allocated), ``fn(params, state, token) -> (logits,
-    new_state)``."""
+    new_state)``. On a DeviceMesh ``params`` are the rank's
+    blocks, ``state`` its block under ``state_specs`` and ``token`` its
+    rows: the step runs the partitioned program (:func:`mesh_step`) and
+    returns the new state as the rank's block. ``kernel`` and ``probe``:
+    as :func:`sectored_attend` takes them."""
     k_pages = topk_for(seq_len, topk_frac)
-
-    def fn(params, state, token):
-        return sectored_decode_step(params, cfg, state, token, k_pages)
-
     pspec = sharding.param_shardings(
         mesh, sharding.abstract(model.init_params, cfg, device="cpu"))
     state_shape = sharding.abstract(init_state, cfg, batch, seq_len,
@@ -539,6 +685,18 @@ def make_sectored_decode_step(cfg, mesh, *, batch: int, seq_len: int,
     sspec = sharding.sectored_state_shardings(mesh, state_shape,
                                               long_context=long_context)
     tok_spec = sharding.P(dp if not long_context else None, None)
+    if step_mod.device_mesh(mesh):
+        step_ = mesh_step(cfg, mesh, pspec, sspec, state_shape, k_pages,
+                          long_context=long_context, kernel=kernel,
+                          probe=probe)
+
+        def fn(params, state, token):
+            new_state = state.fork()
+            return step_(params, new_state, token), new_state
+    else:
+        def fn(params, state, token):
+            return sectored_decode_step(params, cfg, state, token, k_pages,
+                                        probe=probe, kernel=kernel)
     return fn, (pspec, sspec, tok_spec), state_shape
 
 

@@ -507,7 +507,7 @@ def make_prefill_step(cfg, mesh, *, long_context: bool = False):
     ``param_specs`` and ``tokens`` its rows; the step runs the
     partitioned program (:func:`serving_params`), its logits whole."""
     pspec = _param_specs(cfg, mesh)
-    serving = serving_params(cfg, mesh, pspec) if _device_mesh(mesh) \
+    serving = serving_params(cfg, mesh, pspec) if device_mesh(mesh) \
         else None
 
     def prefill_step(params, tokens):
@@ -519,7 +519,8 @@ def make_prefill_step(cfg, mesh, *, long_context: bool = False):
     return prefill_step, (pspec, sharding.batch_sharding(mesh))
 
 
-def _device_mesh(mesh) -> bool:
+def device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a DeviceMesh (not a ``sharding.MeshShape``)."""
     return hasattr(mesh, "get_group")
 
 
@@ -537,7 +538,7 @@ def make_decode_step(cfg, mesh, *, batch: int, seq_len: int,
     state_shape = sharding.abstract(model.init_decode_state, cfg, batch,
                                     seq_len, device="cpu")
     sspec = sharding.decode_state_shardings(mesh, state_shape, long_context)
-    serving = serving_params(cfg, mesh, pspec) if _device_mesh(mesh) \
+    serving = serving_params(cfg, mesh, pspec) if device_mesh(mesh) \
         else None
     mc = comm.MeshComm(mesh) if serving is not None else None
 
