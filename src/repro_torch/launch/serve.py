@@ -41,7 +41,12 @@ common tokens to every prompt so it hits. ``--obs`` attaches the flight
 recorder (spans on the virtual step clock, a metrics table at the end),
 ``--obs-trace-out`` / ``--obs-perfetto-out`` export its spans as JSONL /
 Perfetto JSON, and ``--obs-commands`` (with ``--telemetry``) adds each
-metered wave's DRAM command timeline.
+metered wave's DRAM command timeline. ``--obs-wall PATH`` puts the
+recorder in wall mode: the session's phases on the host clock and, on
+the card, the device intervals of the work they enqueue; the run ends
+with the device's idle time by host span and the queue waits, and PATH
+gets a Perfetto file of its own on the host clock (host and device
+tracks).
 
 ``--mesh DxM`` shards the decode waves over a device mesh
 (``serve.mesh_backend.MeshBackend``): the slot axis over 'data', the
@@ -71,7 +76,7 @@ from repro_torch.kernels import backend as kbackend
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import model
 from repro_torch.obs import (FlightRecorder, MetricsRegistry, write_jsonl,
-                             write_perfetto)
+                             write_perfetto, write_wall_perfetto)
 from repro_torch.runtime import sectored_decode
 from repro_torch.runtime.graphs import Step
 from repro_torch.sample import SamplerSpec
@@ -269,6 +274,12 @@ def main(argv=None):
     ap.add_argument("--obs-perfetto-out", default=None, metavar="PATH",
                     help="with --obs: export the span trace as Chrome/"
                          "Perfetto trace_event JSON")
+    ap.add_argument("--obs-wall", default=None, metavar="PATH",
+                    help="with --obs: wall mode, the session's phases on "
+                         "the host clock and their device intervals on "
+                         "the card (CUDA events, read once at the end); "
+                         "prints the device's idle time by host span and "
+                         "writes a host-clock Perfetto trace to PATH")
     ap.add_argument("--obs-commands", action="store_true",
                     help="with --obs and --telemetry: record every metered "
                          "wave's and prefill's DRAM command timeline; the "
@@ -330,9 +341,11 @@ def main(argv=None):
         # decode greedy: refuse instead of faking a sampling run
         ap.error("--top-k/--top-p/--seed/--sample-every need "
                  "--temperature > 0 (temperature 0 is greedy decoding)")
-    if (args.obs_trace_out or args.obs_perfetto_out) and not args.obs:
-        ap.error("--obs-trace-out/--obs-perfetto-out need --obs (there is "
-                 "no span trace to export without the flight recorder)")
+    if (args.obs_trace_out or args.obs_perfetto_out
+            or args.obs_wall) and not args.obs:
+        ap.error("--obs-trace-out/--obs-perfetto-out/--obs-wall need --obs "
+                 "(there is no span trace to export without the flight "
+                 "recorder)")
     if args.obs_commands and not args.obs:
         ap.error("--obs-commands needs --obs (the command track rides on "
                  "the flight recorder)")
@@ -372,7 +385,8 @@ def main(argv=None):
                  if args.kv_pages is not None else None)
     prefix_cache = (PrefixCache(args.prefix_cache_pages, **page_kwargs)
                     if args.prefix_cache else None)
-    obs = (FlightRecorder(MetricsRegistry(), commands=args.obs_commands)
+    obs = (FlightRecorder(MetricsRegistry(), commands=args.obs_commands,
+                          wall=args.obs_wall is not None)
            if args.obs else None)
     # a group this run starts is this run's to end
     own_group = args.mesh is not None and not dist.is_initialized()
@@ -447,7 +461,8 @@ def print_run(sess, cfg, args, device, kernel, stats, handles, obs,
         print_energy_report(sess, handles, trace_out=args.trace_out)
     if obs is not None:
         print_obs_report(obs, trace_out=args.obs_trace_out,
-                         perfetto_out=args.obs_perfetto_out)
+                         perfetto_out=args.obs_perfetto_out,
+                         wall_out=args.obs_wall)
 
 
 def print_seed_provenance(handles, *, base_seed: int, limit: int = 16) -> None:
@@ -518,11 +533,13 @@ def print_energy_report(sess, handles, *, trace_out=None) -> None:
         print(f"wrote per-wave trace: {path}")
 
 
-def print_obs_report(obs, *, trace_out=None, perfetto_out=None) -> None:
+def print_obs_report(obs, *, trace_out=None, perfetto_out=None,
+                     wall_out=None) -> None:
     """Flight-recorder summary: the metrics snapshot table plus optional
     span-trace exports (JSONL and/or Perfetto; command-timeline records,
     when traced, ride along as a .commands.jsonl sibling and a dedicated
-    Perfetto track)."""
+    Perfetto track), and in wall mode the run's wall-clock numbers and
+    their Perfetto file (``wall_out``)."""
     spans = obs.spans()
     commands = obs.command_records if obs.trace_commands else None
     print("-- flight recorder ---------------------------------------------")
@@ -541,6 +558,36 @@ def print_obs_report(obs, *, trace_out=None, perfetto_out=None) -> None:
         path = write_perfetto(spans, perfetto_out, commands=commands)
         print(f"wrote perfetto trace: {path} "
               f"(open in ui.perfetto.dev or chrome://tracing)")
+    if wall_out:
+        print_wall_report(obs, wall_out)
+
+
+def print_wall_report(obs, path) -> None:
+    """A wall-mode recorder's numbers over the whole run (first step to
+    last), and its host-clock Perfetto file at ``path``."""
+    r = obs.resolve()
+    waits = sorted(r["queue_wait_s"])
+    print(f"-- wall clock ({r['window_s']:.3f} s, {r['waves']} waves, "
+          f"{r['graph_captures']} graph captures in steps) --------------")
+    if waits:
+        print(f"queue wait: p50 {np.percentile(waits, 50) * 1e3:.3f} ms "
+              f"p95 {np.percentile(waits, 95) * 1e3:.3f} ms "
+              f"({len(waits)} admissions)")
+    if r["wave_kernel_nodes"] is not None:
+        print(f"graph nodes a wave: "
+              f"{r['wave_kernel_nodes'] / r['waves']:.1f} kernels, "
+              f"{r['wave_memcpy_nodes']} memcpy and "
+              f"{r['wave_memset_nodes']} memset in all")
+    if r["idle_s"] is not None and r["window_s"] > 0:
+        print(f"device idle: {100 * r['idle_s'] / r['window_s']:.2f} % of "
+              f"the run; by host span: " + ", ".join(
+                  f"{name} {sec * 1e3:.3f} ms" for name, sec in sorted(
+                      r["idle_by_span"].items(), key=lambda kv: -kv[1])))
+        print("device time: " + ", ".join(
+            f"{name} {sec * 1e3:.3f} ms"
+            for name, sec in sorted(r["device_s"].items())))
+    out = write_wall_perfetto(obs.wall_spans(), path, obs.device_intervals)
+    print(f"wrote wall-clock perfetto trace: {out}")
 
 
 if __name__ == "__main__":

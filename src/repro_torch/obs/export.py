@@ -14,6 +14,13 @@ format requires real time units; the scale is arbitrary and chosen so a
 few hundred steps render comfortably). Open ``chrome://tracing`` or
 https://ui.perfetto.dev and load the file: one named track ("thread")
 per request plus a session track carrying wave spans and counter series.
+
+A recorder in wall mode has a second export, to a file of its own
+(:func:`write_wall_perfetto`): its wall records and, once
+:meth:`~repro_torch.obs.FlightRecorder.resolve` has placed them, the
+device intervals, in real microseconds from the first record, on two
+tracks, host and device (each request's queue wait as an async slice
+beside them). It is not deterministic: it is a measurement.
 """
 
 from __future__ import annotations
@@ -169,5 +176,64 @@ def write_perfetto(spans: Iterable[Mapping[str, Any]], path,
     payload = {"displayTimeUnit": "ms",
                "metadata": dict(extra or {}),
                "traceEvents": events}
+    path.write_text(json.dumps(payload, sort_keys=True) + "\n")
+    return path
+
+
+#: the wall-clock export's tracks: one process, a host and a device thread
+WALL_TRACKS = ("host", "device")
+
+
+def wall_trace_events(wall_spans: Iterable[Mapping[str, Any]],
+                      device_intervals: Iterable[Mapping[str, Any]] = ()
+                      ) -> list[dict]:
+    """Chrome ``trace_event`` list of a wall-mode recorder, in µs from
+    the first record: every closed wall span but ``queued`` as a
+    complete slice on the host track, each ``queued`` as an async slice
+    (id: the request), every device interval on the device track; a
+    slice's ``args`` carry its request and attributes."""
+    spans = [s for s in wall_spans if s.get("end") is not None]
+    device = list(device_intervals)
+    starts = [s["start"] for s in spans] + [d["start"] for d in device]
+    if not starts:
+        return []
+    t0 = min(starts)
+
+    def us(t):
+        return (t - t0) / 1e3
+
+    events: list[dict] = [
+        {"ph": "M", "name": "thread_name", "pid": 0, "tid": tid,
+         "args": {"name": name}} for tid, name in enumerate(WALL_TRACKS)]
+    for s in spans:
+        args = dict(s.get("attrs") or {})
+        if s.get("rid") is not None:
+            args["rid"] = s["rid"]
+        if s["name"] == "queued":
+            for ph, t in (("b", s["start"]), ("e", s["end"])):
+                events.append({"ph": ph, "cat": "queue", "name": "queued",
+                               "id": s["rid"], "pid": 0, "tid": 0,
+                               "ts": us(t), "args": args})
+            continue
+        events.append({"ph": "X", "name": s["name"], "pid": 0, "tid": 0,
+                       "ts": us(s["start"]),
+                       "dur": us(s["end"]) - us(s["start"]), "args": args})
+    for d in device:
+        args = {} if d.get("rid") is None else {"rid": d["rid"]}
+        events.append({"ph": "X", "name": d["name"], "pid": 0, "tid": 1,
+                       "ts": us(d["start"]),
+                       "dur": us(d["end"]) - us(d["start"]), "args": args})
+    return events
+
+
+def write_wall_perfetto(wall_spans: Iterable[Mapping[str, Any]], path,
+                        device_intervals: Iterable[Mapping[str, Any]] = ()
+                        ) -> pathlib.Path:
+    """Write :func:`wall_trace_events` as a Perfetto/chrome://tracing JSON
+    object trace; returns path."""
+    path = pathlib.Path(path)
+    payload = {"displayTimeUnit": "ms",
+               "traceEvents": wall_trace_events(wall_spans,
+                                                device_intervals)}
     path.write_text(json.dumps(payload, sort_keys=True) + "\n")
     return path

@@ -26,6 +26,13 @@ time. A CUDA graph records those launches once and replays them as one.
   own calls are taken back out (:func:`uncounted`), so the counters read
   what the card ran for the caller. A meshed wave's collectives
   (``parallel.comm.launches``) are counted the same way.
+* graph nodes: a capture keeps its ``cudaGraph_t`` (``keep_graph=True``)
+  long enough to count its kernel, memcpy and memset nodes through the
+  driver (:func:`graph_nodes`), then instantiates it; every replay adds
+  them to :data:`REPLAYED` (four integer adds, whether or not a recorder
+  reads them), and every capture counts in it too, so a
+  recorder can read the nodes a wave replayed and see a capture that
+  falls in a timed window.
 * garbage: the cyclic collector runs before a capture and not during it,
   since freeing another graph while a stream captures invalidates the
   capture.
@@ -37,6 +44,7 @@ counters only.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 
@@ -160,6 +168,77 @@ def add_launches(counters, made) -> None:
             c[k] = c.get(k, 0) + n
 
 
+# -- graph nodes -------------------------------------------------------------
+
+#: CUgraphNodeType values counted apart (cuda.h), and a child graph's
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_CHILD_GRAPH = 4
+
+
+class Replayed:
+    """Replays of graphs whose nodes were counted and their nodes by kind,
+    since the process started, and the graphs captured (read as
+    differences around a span)."""
+
+    def __init__(self):
+        self.graphs = self.kernel = self.memcpy = self.memset = 0
+        self.captures = 0
+
+
+REPLAYED = Replayed()
+
+
+def _driver():
+    """The CUDA driver library (loaded by any process on the card), or
+    None."""
+    try:
+        return ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+
+
+def graph_nodes(raw: int) -> dict | None:
+    """Kernel, memcpy and memset nodes of the graph ``raw`` (a
+    ``cudaGraph_t``), child graphs walked; None where the driver cannot
+    be asked."""
+    lib = _driver()
+    if lib is None or not raw:
+        return None
+    counts = dict.fromkeys(NODE_KINDS.values(), 0)
+    pending = [ctypes.c_void_p(raw)]
+    while pending:
+        graph = pending.pop()
+        n = ctypes.c_size_t(0)
+        if lib.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+            return None
+        nodes = (ctypes.c_void_p * n.value)()
+        if lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+            return None
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            if lib.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)):
+                return None
+            if kind.value == _CHILD_GRAPH:
+                child = ctypes.c_void_p()
+                if lib.cuGraphChildGraphNodeGetGraph(ctypes.c_void_p(node),
+                                                     ctypes.byref(child)):
+                    return None
+                pending.append(child)
+            elif kind.value in NODE_KINDS:
+                counts[NODE_KINDS[kind.value]] += 1
+    return counts
+
+
+def _new_graph():
+    """``(graph, kept)``: a graph that keeps its ``cudaGraph_t`` after
+    the capture where this torch offers it (``kept``), else a plain one."""
+    try:
+        return torch.cuda.CUDAGraph(keep_graph=True), True
+    except TypeError:
+        return torch.cuda.CUDAGraph(), False
+
+
 # -- captured steps ----------------------------------------------------------
 
 
@@ -181,7 +260,9 @@ class CapturedStep:
 
     ``launches`` holds the kernel launches one replay makes (per counter in
     ``counters``), added to the counters on every replay;
-    ``warmup_launches`` those of the warm-up, counted nowhere.
+    ``warmup_launches`` those of the warm-up, counted nowhere. ``nodes``
+    holds the graph's kernel, memcpy and memset nodes (None where they
+    could not be counted), added to :data:`REPLAYED` on every replay.
     """
 
     def __init__(self, body, *, pool=None, counters=KERNEL_COUNTERS):
@@ -191,6 +272,7 @@ class CapturedStep:
         self.graph = None
         self.launches: list[dict] | None = None
         self.warmup_launches: list[dict] | None = None
+        self.nodes: dict | None = None
 
     def __call__(self, state, token, *rest):
         if self.graph is None:
@@ -208,6 +290,11 @@ class CapturedStep:
             self.token.copy_(token)
         self.graph.replay()
         add_launches(self.counters, self.launches)
+        if self.nodes is not None:
+            REPLAYED.graphs += 1
+            REPLAYED.kernel += self.nodes["kernel"]
+            REPLAYED.memcpy += self.nodes["memcpy"]
+            REPLAYED.memset += self.nodes["memset"]
         return self.out
 
     def _capture(self, state, token, rest) -> None:
@@ -220,6 +307,7 @@ class CapturedStep:
         with uncounted(self.counters) as held:
             self.graph, self.out = self._record(static)
         self.launches = held
+        REPLAYED.captures += 1
 
     def _warm_up(self, scratch) -> None:
         # the capture runs on this stream too: cuBLAS sets up its
@@ -241,12 +329,15 @@ class CapturedStep:
         enabled = gc.isenabled()
         gc.disable()
         try:
-            graph = torch.cuda.CUDAGraph()
+            graph, kept = _new_graph()
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
                 out = self.body(*static)
         finally:
             if enabled:
                 gc.enable()
+        if kept:
+            self.nodes = graph_nodes(graph.raw_cuda_graph())
+            graph.instantiate()
         return graph, out
 
 

@@ -62,7 +62,11 @@ Metering and the flight recorder are discovered, not configured: a
 :class:`~repro_torch.telemetry.MeteredBackend` carries a ``WaveMeter``
 and ``obs`` is a :class:`~repro_torch.obs.FlightRecorder`; both are
 driven on the host from counters the session already keeps, never inside
-a captured wave, and each hook is one ``is None`` check when off.
+a captured wave, and each hook is one ``is None`` check when off. A
+recorder in wall mode also times the session's phases where the work
+happens: ``step``, ``schedule``, each request's ``admit`` (``prefill``,
+``first_token``, ``install``), ``wave`` (``merge``, ``replay``), ``read``
+and ``emit``.
 
 A :class:`~repro_torch.serve.mesh_backend.MeshBackend` extends the
 vectorized flavor across a device mesh, SPMD: every rank runs this
@@ -510,8 +514,14 @@ class ServeSession:
 
     def prefill_one(self, handle: StreamHandle):
         """Blocking single-prompt prefill; returns (first_token, state)."""
+        obs = self.obs
         prompt = self.effective_prompt(handle)
+        if obs is not None:
+            obs.on_admit_begin(handle)
+            obs.wall_open("prefill", handle.rid, tokens=len(prompt))
         logits, state, lease = self._prefill_states(handle, prompt)
+        if obs is not None:
+            obs.wall_close("prefill", handle.rid)
         self._take_lease(handle, lease)
         self.stats["prefill_calls"] += 1
         if self.prefix_cache is not None and not handle._tokens:
@@ -520,8 +530,12 @@ class ServeSession:
             self.prefix_cache.insert(prompt, state)
         if self.meter is not None:
             self._record_prefill(handle, len(prompt))
+        if obs is not None:
+            obs.wall_open("first_token", handle.rid)
         tok = self._first_token(handle, logits[0])
         handle._first_logp = self._logp_of(logits[0], tok)
+        if obs is not None:
+            obs.wall_close("first_token", handle.rid)
         return tok, state
 
     @staticmethod
@@ -554,28 +568,48 @@ class ServeSession:
         on the device — see :class:`PrefillGroup`. Counts one prefill call
         per group, as the reference's one group dispatch does.
         """
+        obs = self.obs
         prompts = [self.effective_prompt(h) for h in handles]
         lengths = {len(p) for p in prompts}
         if len(lengths) != 1:
             raise ValueError(f"prefill_group needs equal prompt lengths, "
                              f"got {sorted(lengths)}")
         self.stats["prefill_calls"] += 1
+        if obs is not None:
+            for h in handles:
+                obs.on_admit_begin(h)
         if len(handles) == 1:
             # the one branch that can go warm (schedulers route cache hits
             # here via prefix_hit); a larger group prefills cold
+            if obs is not None:
+                obs.wall_open("prefill", handles[0].rid,
+                              tokens=len(prompts[0]))
             row_logits, state, lease = self._prefill_states(handles[0],
                                                             prompts[0])
+            if obs is not None:
+                obs.wall_close("prefill", handles[0].rid)
             self._take_lease(handles[0], lease)
             rows = [(row_logits, state)]
         elif self._vmapped_prefill is not None:
             # a mesh backend's group prefill runs on its donor rank
+            if obs is not None:
+                obs.wall_open("prefill", rids=tuple(h.rid for h in handles),
+                              tokens=sum(map(len, prompts)))
             group_logits, states = self._vmapped_prefill(prompts)
             if self._place_rows is not None:
                 states = self._place_rows(states)  # donor -> every rank
+            if obs is not None:
+                obs.wall_close("prefill")
             rows = [(group_logits[j:j + 1], state)
                     for j, state in enumerate(states)]
         else:
-            rows = [self.backend.prefill_fn(p[None, :]) for p in prompts]
+            rows = []
+            for h, p in zip(handles, prompts):
+                if obs is not None:
+                    obs.wall_open("prefill", h.rid, tokens=len(p))
+                rows.append(self.backend.prefill_fn(p[None, :]))
+                if obs is not None:
+                    obs.wall_close("prefill", h.rid)
         logits = [row[0] for row in rows]
         states = [row[1] for row in rows]
         if self.prefix_cache is not None:
@@ -645,6 +679,9 @@ class ServeSession:
                 state) -> None:
         """Place one prefilled request (a batch-1 state) into a slot and
         emit its first token (the FIFO admission path)."""
+        obs = self.obs
+        if obs is not None:
+            obs.wall_open("install", handle.rid)
         if self.vectorized:
             self._prepare_wave_buffer(
                 state_signature(state),
@@ -653,7 +690,11 @@ class ServeSession:
             self._scatter_sampler_rows([slot], [handle])
         else:
             self._install_slot_state(slot, state)
+        if obs is not None:
+            obs.wall_close("install", handle.rid)
         self._emit_first(slot, handle, first_token)
+        if obs is not None:
+            obs.wall_close("admit", handle.rid)
 
     def install_group(self, slots: list[int], group: PrefillGroup) -> None:
         """Admit a whole prefill group: its rows into the slots and one
@@ -663,6 +704,9 @@ class ServeSession:
         if len(slots) != len(group):
             raise ValueError(f"{len(group)} prefilled requests for "
                              f"{len(slots)} slots")
+        obs = self.obs
+        if obs is not None:
+            obs.wall_open("install", rids=tuple(h.rid for h in group.handles))
         if self.vectorized:
             self._prepare_wave_buffer(
                 group.sig,
@@ -673,10 +717,18 @@ class ServeSession:
         else:
             for slot, state in zip(slots, group.states):
                 self._install_slot_state(slot, state)
+        if obs is not None:
+            obs.wall_close("install")
         for j, (slot, handle) in enumerate(zip(slots, group.handles)):
+            if obs is not None:
+                obs.wall_open("first_token", handle.rid)
             tok = self._first_token(handle, group.logits[j])
             handle._first_logp = self._logp_of(group.logits[j], tok)
+            if obs is not None:
+                obs.wall_close("first_token", handle.rid)
             self._emit_first(slot, handle, tok)
+            if obs is not None:
+                obs.wall_close("admit", handle.rid)
 
     def _scatter_sampler_rows(self, slots: list[int], handles) -> None:
         """Admission scatter for the per-slot sampler state: each handle's
@@ -995,18 +1047,38 @@ class ServeSession:
 
     def step(self) -> int:
         """Admit + one decode wave. Returns tokens produced."""
-        if self.obs is not None:
-            self.obs.advance()  # the virtual step clock every span keys on
+        obs = self.obs
+        if obs is None:
+            return self._step()
+        obs.wall_open("step")
+        try:
+            return self._step()
+        finally:
+            obs.wall_close("step")
+
+    def _step(self) -> int:
+        obs = self.obs
+        if obs is not None:
+            obs.advance()  # the virtual step clock every span keys on
+            obs.wall_open("schedule")
         self.scheduler.schedule(self)
+        if obs is not None:
+            obs.wall_close("schedule")
         active = self.active_slots()
         if not active:
             return 0
+        if obs is not None:
+            obs.wall_open("wave")
         decision = self.policy.decide(self.occupancy, self.stats)
         use_sectored = bool(decision.use_sectored
                             and self.backend.supports_sectored)
         if (use_sectored and decision.merge_demands
                 and self.backend.demand_merge_fn is not None):
+            if obs is not None:
+                obs.wall_open("merge")
             self._merge_demands(active)
+            if obs is not None:
+                obs.wall_close("merge")
         fn = (self.backend.sectored_fn_for(decision.topk_frac)
               if use_sectored else self.backend.decode_fn)
         sampled = self._wave_sampled(active)
@@ -1017,7 +1089,12 @@ class ServeSession:
         if self.vectorized:
             next_tok, logps = self._run_vectorized(active, fn, sampled)
         else:
+            if obs is not None:
+                obs.wall_open("replay")
             next_tok, logps = self._run_looped(active, fn)
+            if obs is not None:
+                # each slot's token was read: the device has drained
+                obs.wall_close("wave", anchor=True)
             self.scheduler.overlap(self)
         # wall_s brackets the wave, the overlap and the token read; it
         # never enters joules or dram_ns. The wave info is taken before
@@ -1026,18 +1103,22 @@ class ServeSession:
         wave_info = (self._meter_wave_info(active, decision, use_sectored)
                      if self.meter is not None else None)
         active_rids = ([(s, self.slots[s].rid) for s in active]
-                       if self.obs is not None else None)
+                       if obs is not None else None)
+        if obs is not None:
+            obs.wall_open("emit")
         produced = self._emit_wave(active, next_tok, logps, use_sectored)
+        if obs is not None:
+            obs.wall_close("emit")
         if wave_info is not None:
             self.meter.record_wave(wall_s=wall_s, **wave_info)
-        if self.obs is not None:
+        if obs is not None:
             energy = (self.meter.recorder.window(1)[-1]
                       if self.meter is not None else None)
             timeline = (self.meter.last_timeline
                         if self.meter is not None else None)
-            self.obs.on_wave(active_rids=active_rids, produced=produced,
-                             sectored=use_sectored, energy=energy,
-                             timeline=timeline)
+            obs.on_wave(active_rids=active_rids, produced=produced,
+                        sectored=use_sectored, energy=energy,
+                        timeline=timeline)
         return produced
 
     def _host_buffer(self, t: torch.Tensor) -> torch.Tensor:
@@ -1058,6 +1139,7 @@ class ServeSession:
         the copies alone (an event recorded right after them) and return
         them. The overlapped prefill queues behind the wave on the same
         stream, so the read never waits for it."""
+        obs = self.obs
         bufs = [self._host_buffer(t) for t in tensors]
         for buf, t in zip(bufs, tensors):
             buf.copy_(t, non_blocking=True)
@@ -1065,13 +1147,21 @@ class ServeSession:
         if any(t.device.type == "cuda" for t in tensors):
             event = torch.cuda.Event()
             event.record()
+        if obs is not None:
+            obs.wall_close("wave")
         self.wave_in_flight = True
         try:
             self.scheduler.overlap(self)
         finally:
             self.wave_in_flight = False
+        if obs is not None:
+            obs.wall_open("read")
         if event is not None:
             event.synchronize()
+        if obs is not None:
+            # the copies are in: the device has drained (unless the
+            # scheduler queued a prefill behind them)
+            obs.wall_close("read", anchor=True)
         return [buf.numpy().copy() for buf in bufs]
 
     def _run_vectorized(self, active: list[int], fn, sampled: bool):
@@ -1091,6 +1181,8 @@ class ServeSession:
         tok_in = torch.as_tensor(desired, device=self.device)
         wave = self._wave_for(fn, sampled)
         rows = self._sampler_rows
+        if self.obs is not None:
+            self.obs.wall_open("replay")  # closed with the wave
         if self.fuse_wave:
             toks, logps = self._read_over_overlap(wave(self.batched, tok_in,
                                                        rows), rows.logp)

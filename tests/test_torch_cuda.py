@@ -8,6 +8,8 @@ neither JAX nor the JAX package, so it runs on a machine with only
 PyTorch: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 """
 
+import collections
+
 import pytest
 import torch
 
@@ -726,6 +728,70 @@ def test_serving_layer_flavors_agree_on_card(gpu):
             else:
                 assert max(abs(a - b) for a, b in zip(lps, want_lps)) <= \
                     BATCH_LOGPROB_TOL
+
+
+# how far a device interval placed on the host clock may seem to start
+# before the host span that enqueued it: the anchor's own latency
+CAUSAL_SLACK_NS = 20_000
+
+
+@pytest.mark.parametrize("path", ["fused", "dense"])
+def test_wall_recorder_on_card(gpu, path):
+    """A wall-mode recorder on the card, 6 requests on 4 slots (two
+    admitted mid-run): the same tokens and logprobs as without it; the
+    device intervals ordered and causal (none starts more than 20 us
+    before the host span that enqueued it); every wave replays the same
+    kernel nodes, as many as the profiler sees in one replay; the graphs
+    are captured in the first step only; the idle time by span adds up to
+    the idle total."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get("yi-6b").reduced(**GRAPH_CFG)
+    params = model.init_params(cfg, seed=0, device=gpu)
+    lengths = (126, 127, 300, 383, 40, 200)
+    out = {}
+    for wall in (False, True):
+        obs = FlightRecorder(wall=True) if wall else None
+        sess = launch_serve.build_session(
+            cfg, params, true_sectored=path == "fused",
+            kernel="fused" if path == "fused" else "dispatch",
+            policy="sectored" if path == "fused" else "dense",
+            seq_len=768, device=gpu, obs=obs)
+        out[wall] = _serve(sess, cfg, [None] * 6, lengths)[:2]
+    assert out[True] == out[False]
+    r = obs.resolve()
+    wall = obs.wall_spans()
+    intervals = obs.device_intervals
+    assert {d["name"] for d in intervals} - {"merge"} == {
+        "prefill", "first_token", "install", "replay"}
+    for before, d in zip(intervals, intervals[1:]):
+        assert d["start"] >= before["end"] - CAUSAL_SLACK_NS, (before, d)
+    for d in intervals:
+        assert d["end"] >= d["start"]
+        assert d["start"] >= wall[d["index"]]["start"] - CAUSAL_SLACK_NS, d
+    kernels = {w["attrs"]["kernel_nodes"] for w in wall
+               if w["name"] == "wave"}
+    (per_wave,) = kernels
+    assert per_wave > 0
+    assert r["wave_kernel_nodes"] == per_wave * r["waves"]
+    assert {step for step, _, _ in obs.captures} == {1}
+    assert r["idle_s"] + r["busy_s"] == pytest.approx(r["window_s"])
+    assert sum(r["idle_by_span"].values()) == pytest.approx(r["idle_s"])
+    assert r["device_s"]["replay"] > 0 and len(r["queue_wait_s"]) == 6
+    assert r["early_s"] <= CAUSAL_SLACK_NS / 1e9 and r["event_stalls"] == 0
+    (wave,) = sess._wave_cache.values()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wave.graph.replay()
+        torch.cuda.synchronize()
+    seen = collections.Counter(e.name for e in prof.events()
+                               if e.device_type == DeviceType.CUDA)
+    copies = {name: n for name, n in seen.items()
+              if "memcpy" in name.lower() or "memset" in name.lower()}
+    assert (sum(seen.values()) - sum(copies.values()),
+            sum(copies.values())) == (
+        per_wave, wave.nodes["memcpy"] + wave.nodes["memset"]), copies
 
 
 # the CPU parity tests' bf16 tolerances (tests/test_torch_train_grads.py)
